@@ -1,0 +1,241 @@
+"""Frontend tracker: frame preprocessing and pose estimation (counterpart of
+`dqo_map_tpu/slam/tracker.py`, the ICP-only path).
+
+Preprocessing builds the vertex / normal / confidence maps, the range and
+confidence masks and the ICP pyramids. With `async_pose` (set by
+SLAMSystem) the pose chain stays on the device: the ICP result is composed
+there, the frame adopts the device pose, and the failure check reads the
+PREVIOUS frame's residual, one frame late, so the host waits on nothing.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.cameras import Camera
+from ..utils import image as im
+from ..utils.math3d import eval_ate
+from .icp import IcpConfig, icp_pyramid
+
+
+def preprocess_frame(depth: torch.Tensor, color: torch.Tensor, K: torch.Tensor,
+                     levels: int = 3, min_depth: float = 0.3,
+                     max_depth: float = 5.0,
+                     invalid_confidence_thresh: float = 0.2,
+                     depth_filter: bool = False) -> dict:
+    """depth (H,W) meters; color (H,W,3). Returns the frame map dict of
+    camera-frame maps and pyramids; world-frame maps come after tracking."""
+    if depth_filter:
+        depth = im.bilateral_filter(depth, 5, 2.0, 2.0)[..., 0]
+    valid = (depth > min_depth) & (depth < max_depth)
+    depth = torch.where(valid, depth, 0.0)
+
+    vertex_c = im.compute_vertex_map(depth, K)
+    normal_c = im.compute_normal_map(vertex_c)
+    confidence = im.compute_confidence_map(normal_c, K)
+
+    invalid_conf = (torch.all(normal_c == 0, dim=-1)
+                    | (confidence[..., 0] < invalid_confidence_thresh))
+    depth = torch.where(invalid_conf, 0.0, depth)
+    normal_c = torch.where(invalid_conf[..., None], 0.0, normal_c)
+    vertex_c = torch.where(invalid_conf[..., None], 0.0, vertex_c)
+    confidence = torch.where(invalid_conf[..., None], 0.0, confidence)
+
+    vertex_pyr, normal_pyr = build_pyramids(depth, K, levels)
+    return {
+        "depth_map": depth,
+        "color_map": color,
+        "vertex_map_c": vertex_c,
+        "normal_map_c": normal_c,
+        "confidence_map": confidence,
+        "invalid_confidence_mask": invalid_conf,
+        "vertex_pyr": vertex_pyr,
+        "normal_pyr": normal_pyr,
+    }
+
+
+def build_pyramids(depth: torch.Tensor, K: torch.Tensor, levels: int = 3):
+    vp = tuple(im.build_vertex_pyramid(depth, K, levels))
+    return vp, tuple(im.build_normal_pyramid(vp))
+
+
+def _median3x3(x: torch.Tensor) -> torch.Tensor:
+    """9-tap median of (H,W), edge-padded."""
+    H, W = x.shape
+    p = F.pad(x[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    v = torch.stack([p[dy:dy + H, dx:dx + W] for dy in range(3)
+                     for dx in range(3)])
+    return torch.sort(v, dim=0).values[4]
+
+
+def fuse_model_depth(render_depth, frame_depth, render_normal, frame_normal,
+                     sample_distance_threshold: float = 0.01,
+                     sample_normal_threshold: float = 0.01):
+    """Frame-to-model depth fusion for the next ICP reference: the 3x3
+    median of the render depth, blended with the frame depth by inverse
+    variance where the two agree, the frame's own speckle giving the sensor
+    noise (see the reference's docstring for the derivation)."""
+    rd = _median3x3(render_depth)
+    cos = torch.sum(render_normal * frame_normal, dim=-1) / (
+        torch.linalg.norm(render_normal, dim=-1)
+        * torch.linalg.norm(frame_normal, dim=-1) + 1e-8)
+    normal_ok = (1.0 - cos) <= sample_normal_threshold
+    both = (frame_depth > 0) & (rd > 0)
+    agree = both & normal_ok & (
+        torch.abs(rd - frame_depth) <= sample_distance_threshold)
+
+    def gated_mean(x, m):
+        return torch.sum(torch.where(m, x, 0.0)) / torch.clamp(torch.sum(m), min=1)
+
+    hp = torch.abs(frame_depth - _median3x3(frame_depth))
+    s_f = gated_mean(hp, agree) * 1.2533
+    s_d = gated_mean(torch.abs(rd - frame_depth), agree) * 1.2533
+    s_r2 = torch.clamp(s_d * s_d - s_f * s_f, min=1e-12)
+    w = (s_f * s_f) / (s_f * s_f + s_r2)
+    fused = torch.where(agree, w * rd + (1.0 - w) * frame_depth, frame_depth)
+    return torch.where(frame_depth > 0, fused, rd)
+
+
+class Tracker:
+    def __init__(self, args, width: int, height: int, device="cuda"):
+        if getattr(args, "use_orb_backend", False):
+            raise NotImplementedError(
+                "the feature pose backend is not ported yet; "
+                "set use_orb_backend=False")
+        self.device = torch.device(device)
+        self.use_gt_pose = args.use_gt_pose
+        self.icp_use_model_depth = args.icp_use_model_depth
+        self.min_depth = args.min_depth
+        self.max_depth = args.max_depth
+        self.depth_filter = args.depth_filter
+        self.invalid_confidence_thresh = args.invalid_confidence_thresh
+        self.icp_sample_distance_threshold = args.icp_sample_distance_threshold
+        self.icp_sample_normal_threshold = args.icp_sample_normal_threshold
+        self.levels = len(args.icp_downscales)
+        self.icp_cfg = IcpConfig(
+            downscales=tuple(args.icp_downscales),
+            iters=tuple(args.icp_downscale_iters),
+            distance_threshold=args.icp_distance_threshold,
+            normal_threshold_cos=float(
+                math.cos(math.radians(args.icp_normal_threshold))),
+            damping=args.icp_damping,
+            fail_threshold=args.icp_fail_threshold,
+            min_valid_ratio=getattr(args, "icp_min_valid_ratio", 0.3),
+        )
+        self.width = width
+        self.height = height
+        self.K = None
+        self.pose_gt: list = []
+        self.pose_es: list = []        # numpy (4,4) or device tensors
+        self.timestamps: list = []
+        self.icp_fail_count = 0
+        self.async_pose = False        # device-side pose chain (SLAMSystem)
+        self._pending_p2p = None
+        self._last_pyr = None          # (vertex_pyr, normal_pyr) of frame t0
+        self._curr_pyr = None
+
+    # ------------------------------------------------------------------
+    def map_preprocess(self, frame: Camera, frame_id: int) -> dict:
+        dev = self.device
+        self.K = torch.as_tensor(frame.K, device=dev)
+        fm = preprocess_frame(
+            torch.as_tensor(frame.depth, dtype=torch.float32, device=dev),
+            torch.as_tensor(frame.image, dtype=torch.float32, device=dev),
+            self.K, levels=self.levels, min_depth=self.min_depth,
+            max_depth=self.max_depth,
+            invalid_confidence_thresh=self.invalid_confidence_thresh,
+            depth_filter=self.depth_filter,
+        )
+        self._curr_pyr = (fm["vertex_pyr"], fm["normal_pyr"])
+        fm["time"] = frame_id
+        return fm
+
+    def tracking(self, frame: Camera, frame_map: dict) -> bool:
+        """Estimate the frame pose, update `frame`, and lift the maps to the
+        world frame."""
+        self.pose_gt.append(np.asarray(frame.pose_gt, np.float64))
+        self.timestamps.append(frame.timestamp)
+        success = True
+        if self.use_gt_pose:
+            pose_t1_w = self.pose_gt[-1]
+        elif self._last_pyr is None:
+            # first frame (or first after a resume): hold the last pose
+            pose_t1_w = (self._pose_np(self.pose_es[-1]) if self.pose_es
+                         else np.eye(4))
+        else:
+            vp0, np0 = self._last_pyr
+            pose10, p2p, valid_ratio = icp_pyramid(
+                vp0, np0, *self._curr_pyr, self.K, self.icp_cfg)
+            if self.async_pose:
+                # deferred failure check on the previous frame's residual
+                if self._pending_p2p is not None:
+                    p_prev, vr_prev = self._pending_p2p.tolist()
+                    if (p_prev > self.icp_cfg.fail_threshold
+                            or vr_prev < self.icp_cfg.min_valid_ratio):
+                        self.icp_fail_count += 1
+                self._pending_p2p = torch.stack([p2p, valid_ratio.float()])
+                pose_dev = self._pose_dev() @ pose10
+                self._last_pyr = self._curr_pyr
+                self.pose_es.append(pose_dev)
+                frame.set_pose_device(pose_dev)
+                frame_map["vertex_map_w"] = im.transform_map(
+                    frame_map["vertex_map_c"], pose_dev)
+                frame_map["normal_map_w"] = im.rotate_map(
+                    frame_map["normal_map_c"], pose_dev)
+                return True
+            p2p, valid_ratio = float(p2p), float(valid_ratio)
+            success = (p2p <= self.icp_cfg.fail_threshold
+                       and valid_ratio >= self.icp_cfg.min_valid_ratio)
+            if not success:
+                self.icp_fail_count += 1
+            pose_t1_w = (self._pose_np(self.pose_es[-1])
+                         @ pose10.cpu().numpy().astype(np.float64))
+
+        self._last_pyr = self._curr_pyr
+        self.pose_es.append(np.asarray(pose_t1_w, np.float64))
+        frame.update_pose(pose_t1_w)
+        c2w = torch.as_tensor(frame.c2w, dtype=torch.float32, device=self.device)
+        frame_map["vertex_map_w"] = im.transform_map(frame_map["vertex_map_c"], c2w)
+        frame_map["normal_map_w"] = im.rotate_map(frame_map["normal_map_c"], c2w)
+        return success
+
+    @staticmethod
+    def _pose_np(p) -> np.ndarray:
+        if isinstance(p, torch.Tensor):
+            return p.cpu().numpy().astype(np.float64)
+        return np.asarray(p, np.float64)
+
+    def _pose_dev(self) -> torch.Tensor:
+        """Last pose as a float32 device tensor."""
+        if self.pose_es:
+            p = self.pose_es[-1]
+            if isinstance(p, torch.Tensor):
+                return p
+            return torch.as_tensor(np.asarray(p), dtype=torch.float32,
+                                   device=self.device)
+        return torch.eye(4, dtype=torch.float32, device=self.device)
+
+    def update_last_status(self, frame, render_depth, frame_depth,
+                           render_normal, frame_normal):
+        """With `icp_use_model_depth`, the fused rendered depth becomes the
+        next ICP reference."""
+        if not self.icp_use_model_depth:
+            return
+        fused = fuse_model_depth(
+            render_depth, frame_depth, render_normal, frame_normal,
+            self.icp_sample_distance_threshold,
+            self.icp_sample_normal_threshold)
+        self._last_pyr = build_pyramids(fused, self.K, self.levels)
+
+    # ------------------------------------------------------------------
+    def poses_np(self) -> list:
+        return [self._pose_np(p) for p in self.pose_es]
+
+    def eval_ate_series(self) -> float:
+        es = np.stack([p[:3, 3] for p in self.poses_np()])
+        gt = np.stack([p[:3, 3] for p in self.pose_gt])
+        return eval_ate(es, gt)

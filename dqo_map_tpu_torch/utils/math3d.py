@@ -1,0 +1,111 @@
+"""3D math: quaternions, SE(3), trajectory alignment (counterpart of
+`dqo_map_tpu/utils/math3d.py`, the part the forward path calls).
+
+Quaternions are (w, x, y, z), as in the rasterizer.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def normalize(v: torch.Tensor, eps: float = 1e-8, dim: int = -1) -> torch.Tensor:
+    return v / (torch.linalg.norm(v, dim=dim, keepdim=True) + eps)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(...,4) wxyz quaternion -> (...,3,3) rotation matrix. Normalizes first."""
+    q = normalize(q)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def quaternion_from_two_vectors(init_vec: torch.Tensor,
+                                target_vec: torch.Tensor) -> torch.Tensor:
+    """Quaternion rotating init_vec onto target_vec."""
+    axis = normalize(torch.linalg.cross(init_vec, target_vec))
+    cosang = torch.clamp(torch.sum(init_vec * target_vec, dim=-1), -1.0, 1.0)
+    half = torch.arccos(cosang)[..., None] / 2
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
+
+
+def skew(w: torch.Tensor) -> torch.Tensor:
+    """(...,3) -> (...,3,3) skew-symmetric matrices."""
+    o = torch.zeros_like(w[..., 0])
+    w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
+    return torch.stack([
+        torch.stack([o, -w2, w1], -1),
+        torch.stack([w2, o, -w0], -1),
+        torch.stack([-w1, w0, o], -1),
+    ], dim=-2)
+
+
+def exp_se3(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) -> SE(3) exponential map; xi = [w(3), v(3)]. Branch-free, with
+    Taylor-safe coefficients near theta = 0."""
+    w = xi[:3]
+    v = xi[3:6]
+    w_hat = skew(w)
+    w_hat2 = w_hat @ w_hat
+    theta = torch.linalg.norm(w)
+    theta2 = theta * theta
+    small = theta < 1e-8
+    one = torch.ones_like(theta)
+    st = torch.where(small, one, torch.sin(theta) / torch.where(small, one, theta))
+    # (1-cos t)/t^2 = 2 sin^2(t/2)/t^2, the cancellation-free form
+    half_sin = torch.sin(theta / 2)
+    ct = torch.where(small, 0.5 * one,
+                     2.0 * half_sin * half_sin / torch.where(small, one, theta2))
+    k2 = torch.where(small, one / 6.0,
+                     (theta - torch.sin(theta))
+                     / torch.where(small, one, theta2 * theta))
+    eye3 = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    e_w = eye3 + w_hat * st + w_hat2 * ct
+    j = eye3 + ct * w_hat + k2 * w_hat2
+    T = torch.eye(4, dtype=xi.dtype, device=xi.device)
+    T[:3, :3] = e_w
+    T[:3, 3] = j @ v
+    return T
+
+
+def rot_compare(prev_rot: np.ndarray, curr_rot: np.ndarray):
+    """Angle between two rotations in (rad, deg)."""
+    rot_diff = prev_rot.T @ curr_rot
+    cos_theta = np.clip((np.trace(rot_diff) - 1) / 2, -1.0, 1.0)
+    rad = np.arccos(cos_theta)
+    return rad, np.rad2deg(rad)
+
+
+def trans_compare(prev_trans: np.ndarray, curr_trans: np.ndarray):
+    d = prev_trans - curr_trans
+    return np.linalg.norm(d, ord=1), np.linalg.norm(d, ord=2)
+
+
+def horn_align(model: np.ndarray, data: np.ndarray):
+    """Align trajectories `model` (3,n) onto `data` (3,n), Horn's closed
+    form. Returns (rot, trans, per-point error)."""
+    model_zc = model - model.mean(1, keepdims=True)
+    data_zc = data - data.mean(1, keepdims=True)
+    W = model_zc @ data_zc.T
+    U, _, Vh = np.linalg.svd(W.T)
+    S = np.identity(3)
+    if np.linalg.det(U) * np.linalg.det(Vh) < 0:
+        S[2, 2] = -1
+    rot = U @ S @ Vh
+    trans = data.mean(1, keepdims=True) - rot @ model.mean(1, keepdims=True)
+    err = rot @ model + trans - data
+    return rot, trans, np.sqrt(np.sum(err * err, 0))
+
+
+def eval_ate(pose_estimate: np.ndarray, pose_gt: np.ndarray) -> float:
+    """ATE RMSE x100 (cm) between (n,3) translation arrays."""
+    pe = np.asarray(pose_estimate, dtype=np.float64).T
+    pg = np.asarray(pose_gt, dtype=np.float64).T
+    _, _, trans_error = horn_align(pe, pg)
+    return float(np.sqrt(np.dot(trans_error, trans_error) / len(trans_error)) * 100)
