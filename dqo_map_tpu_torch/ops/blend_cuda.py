@@ -1,13 +1,17 @@
-"""The forward blend on the card: the wrapper of `csrc/blend_fwd.cu` and the
-layout around it (counterpart of `dqo_map_tpu/ops/blend_pallas.py`'s
-forward: `pack_entries`, `blend_tiles_pallas`; the empty-tile paste is the
-kernel's own init values, written by the CTA of a tile with no entries).
+"""The blend on the card: the wrappers of the two hand-written kernels,
+`csrc/blend_fwd.cu` (K1, the forward, with and without the one-surface
+background) and `csrc/blend_bwd.cu` (K2, its backward), and the
+`torch.autograd.Function` around them (counterpart of
+`dqo_map_tpu/ops/blend_pallas.py`: `pack_entries`, `_blend_core` with its
+custom VJP, `blend_tiles_pallas`; the empty-tile paste is the kernels' own
+init values, written by the CTA of a tile with no entries).
 
-The library is built with `nvcc` for `sm_90a` at its first use, from the
-source in this package, into `dqo_map_tpu_torch/_build/`, and bound with
-ctypes. `blend_tiles` runs the kernel for tensors on the card and the plain
-version (`blend.blend_tiles_ref`) for tensors on the CPU; for a tensor on
-the card it launches the kernel or raises.
+Each source is built with `nvcc` for `sm_90a` at first use, the two in
+parallel, into `dqo_map_tpu_torch/_build/`, and bound with ctypes. For
+tensors on the card the Function launches the kernels or raises; for
+tensors on the CPU it runs the plain versions (`blend.blend_blocks_ref`,
+`blend.blend_bwd_ref`). Each wrapper adds one to its entry of `LAUNCHES`
+where it launches its kernel.
 """
 
 from __future__ import annotations
@@ -19,20 +23,29 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 
-from .blend import (ALPHA_MAX, ALPHA_MIN, NF, BlendParams, blend_tiles_ref,
-                    gather_entry_feats, untile_map)
+from .blend import (ALPHA_MAX, ALPHA_MIN, NA, NB, NC, NF, BlendParams,
+                    blend_blocks_ref, blend_bwd_ref, gather_entry_feats,
+                    unpack_blocks)
 
 PKG = Path(__file__).resolve().parent.parent
-SRC = PKG / "csrc" / "blend_fwd.cu"
+SOURCES = {"blend_fwd": PKG / "csrc" / "blend_fwd.cu",
+           "blend_bwd": PKG / "csrc" / "blend_bwd.cu"}
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-NC = 8               # colour block: rgb, hit depth, hit normal_c, pad
-NA = 8               # aux: hit id, colour id, colour w, hit w, end_T, wsum,
-                     #      T_final, hit depth
+
+# launches per kernel variant, counted where each wrapper launches
+LAUNCHES = dict.fromkeys(("blend_fwd", "blend_fwd_bg", "blend_bwd",
+                          "blend_bwd_bg"), 0)
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -41,49 +54,71 @@ def _nvcc() -> str:
             return os.path.join(cand, "bin", "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the blend kernel is built for "
-                           "sm_90a at first use and needs the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the blend kernels are built for "
+                           "sm_90a at first use and need the CUDA toolkit")
     return found
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile `csrc/blend_fwd.cu` into `_build/` unless a library of the
-    same source and flags is already there. Returns its path."""
-    tag = hashlib.sha256(SRC.read_bytes()
+def _target(name: str) -> Path:
+    tag = hashlib.sha256(SOURCES[name].read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libblend_fwd_{tag}.so"
-    if out.exists():
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def build_libraries(verbose: bool = False) -> dict:
+    """Compile each source of `SOURCES` into `_build/` unless a library of
+    the same source and flags is already there, one nvcc per source, all
+    started together. Returns {name: path}; with `verbose`, prints what
+    `-Xptxas -v` says of each."""
+    out = {name: _target(name) for name in SOURCES}
+    todo = {name: p for name, p in out.items() if not p.exists()}
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    procs = {}
+    for name, target in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, str(SOURCES[name])]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(f"{name}: {err.strip()}")
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
-        P, F, I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-        lib.dqo_blend_fwd.argtypes = [P, ctypes.c_longlong, P, P, I, I, P,
-                                      F, F, F, F, F, F, F, F, F, P, P, P, P]
-        lib.dqo_blend_fwd.restype = I
-        lib.dqo_cuda_error_string.argtypes = [I]
-        lib.dqo_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+def _lib(name: str):
+    if not _LIBS:
+        paths = build_libraries()
+        P, F, I, LL = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
+        fwd = ctypes.CDLL(str(paths["blend_fwd"]))
+        fwd.dqo_blend_fwd.argtypes = [P, LL, P, P, I, I, P, F, F, F, F, F, F,
+                                      F, F, F, P, P, P, P, P]
+        fwd.dqo_blend_fwd.restype = I
+        bwd = ctypes.CDLL(str(paths["blend_bwd"]))
+        bwd.dqo_blend_bwd.argtypes = [P, LL, P, P, I, I, P, F, F, F, F, F, F,
+                                      F, F, F, P, P, P, P, P, P]
+        bwd.dqo_blend_bwd.restype = I
+        for lib in (fwd, bwd):
+            lib.dqo_cuda_error_string.argtypes = [I]
+            lib.dqo_cuda_error_string.restype = ctypes.c_char_p
+        _LIBS.update(blend_fwd=fwd, blend_bwd=bwd)
+    return _LIBS[name]
 
 
 def pack_entries(pre, b, colors, opacities) -> torch.Tensor:
@@ -94,18 +129,13 @@ def pack_entries(pre, b, colors, opacities) -> torch.Tensor:
         pre.depth, pre.mean_c, pre.normal_c, pre.scale_max).contiguous()
 
 
-def blend_fwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
-              tile_counts: torch.Tensor, num_tiles: int, tile_size: int,
-              width: int, K: torch.Tensor, params: BlendParams, bg):
-    """Launch the forward blend kernel, one CTA per tile, each walking its
-    tile's `tile_counts[t]` live entries from `tile_offsets[t]` on. Returns
-    the per-tile blocks color (T, 256, 8), aux (T, 256, 8) and n_touched
-    per entry (L,) int32; a tile with no entries gets the init values."""
+def _check_common(name, feats, tile_offsets, tile_counts, num_tiles,
+                  tile_size, bgt):
     if not feats.is_cuda:
-        raise ValueError("blend_fwd runs on the card; use blend_tiles_ref "
-                         "for CPU tensors")
+        raise ValueError(f"{name} runs on the card; the plain version takes "
+                         "CPU tensors")
     if tile_size != 16:
-        raise ValueError(f"the kernel blends 16x16 tiles, got {tile_size}")
+        raise ValueError(f"the kernels blend 16x16 tiles, got {tile_size}")
     if feats.dtype != torch.float32 or feats.dim() != 2 or feats.shape[0] != NF:
         raise ValueError(f"feats must be float32 (16, L), got "
                          f"{feats.dtype} {tuple(feats.shape)}")
@@ -113,66 +143,155 @@ def blend_fwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
         raise ValueError("tile_offsets must be int64 (num_tiles + 1,)")
     if tile_counts.dtype != torch.int64 or tile_counts.shape != (num_tiles,):
         raise ValueError("tile_counts must be int64 (num_tiles,)")
+    if bgt is not None:
+        _check_block("bgt", bgt, num_tiles, NB, feats.device)
+
+
+def _check_block(what, x, num_tiles, channels, device):
+    if (x.dtype != torch.float32 or x.shape != (num_tiles, 256, channels)
+            or not x.is_contiguous() or x.device != device):
+        raise ValueError(f"{what} must be a contiguous float32 "
+                         f"({num_tiles}, 256, {channels}) tensor on {device}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _scal(K, dev):
+    return torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).to(
+        device=dev, dtype=torch.float32).contiguous()
+
+
+def _raise_on(rc: int, lib, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.dqo_cuda_error_string(rc).decode())
+
+
+def blend_fwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
+              tile_counts: torch.Tensor, num_tiles: int, tile_size: int,
+              width: int, K: torch.Tensor, params: BlendParams, bg,
+              bgt: Optional[torch.Tensor] = None):
+    """Launch K1, one CTA per tile, each walking its tile's `tile_counts[t]`
+    live entries from `tile_offsets[t]` on; with `bgt` (num_tiles, 256, 8)
+    the variant with the one-surface background. Returns the per-tile
+    blocks color (T, 256, 8), aux (T, 256, 8) and n_touched per entry (L,)
+    int32; a tile with no entries gets the init values."""
+    _check_common("blend_fwd", feats, tile_offsets, tile_counts, num_tiles,
+                  tile_size, bgt)
     dev = feats.device
     feats = feats.contiguous()
     tile_offsets = tile_offsets.to(dev).contiguous()
     tile_counts = tile_counts.to(dev).contiguous()
     L = feats.shape[1]
     n_px = tile_size * tile_size
-    scal = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).to(
-        device=dev, dtype=torch.float32).contiguous()
+    scal = _scal(K, dev)
     color = torch.empty((num_tiles, n_px, NC), dtype=torch.float32, device=dev)
     aux = torch.empty((num_tiles, n_px, NA), dtype=torch.float32, device=dev)
     nt = torch.zeros(L, dtype=torch.int32, device=dev)
     bg = [float(x) for x in bg]
     TW = (width + tile_size - 1) // tile_size
-    rc = _lib().dqo_blend_fwd(
+    lib = _lib("blend_fwd")
+    rc = lib.dqo_blend_fwd(
         feats.data_ptr(), L, tile_offsets.data_ptr(), tile_counts.data_ptr(),
         num_tiles, TW, scal.data_ptr(),
         params.opaque_threshold, params.depth_threshold,
         params.normal_threshold, params.T_threshold, ALPHA_MIN, ALPHA_MAX,
-        bg[0], bg[1], bg[2], color.data_ptr(), aux.data_ptr(),
-        nt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("blend_fwd launch failed: "
-                           + _lib().dqo_cuda_error_string(rc).decode())
-    blend_fwd.launches += 1
+        bg[0], bg[1], bg[2], None if bgt is None else bgt.data_ptr(),
+        color.data_ptr(), aux.data_ptr(), nt.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, lib, "blend_fwd")
+    LAUNCHES["blend_fwd" if bgt is None else "blend_fwd_bg"] += 1
     return color, aux, nt
 
 
-blend_fwd.launches = 0
+def blend_bwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
+              tile_counts: torch.Tensor, num_tiles: int, tile_size: int,
+              width: int, K: torch.Tensor, params: BlendParams, bg,
+              color: torch.Tensor, aux: torch.Tensor, dcolor: torch.Tensor,
+              bgt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K2, one CTA per tile: the cotangent `dcolor` (T, 256, 8) of
+    K1's colour block taken back to the (16, L) entry features, from K1's
+    saved `color` and `aux` blocks. Returns dfeats (16, L), 0 on padding
+    and on rows 13 and 14."""
+    _check_common("blend_bwd", feats, tile_offsets, tile_counts, num_tiles,
+                  tile_size, bgt)
+    dev = feats.device
+    for what, x, ch in (("color", color, NC), ("aux", aux, NA),
+                        ("dcolor", dcolor, NC)):
+        _check_block(what, x, num_tiles, ch, dev)
+    feats = feats.contiguous()
+    tile_offsets = tile_offsets.to(dev).contiguous()
+    tile_counts = tile_counts.to(dev).contiguous()
+    L = feats.shape[1]
+    scal = _scal(K, dev)
+    dfeats = torch.zeros((NF, L), dtype=torch.float32, device=dev)
+    bg = [float(x) for x in bg]
+    TW = (width + tile_size - 1) // tile_size
+    lib = _lib("blend_bwd")
+    rc = lib.dqo_blend_bwd(
+        feats.data_ptr(), L, tile_offsets.data_ptr(), tile_counts.data_ptr(),
+        num_tiles, TW, scal.data_ptr(),
+        params.opaque_threshold, params.depth_threshold,
+        params.normal_threshold, params.T_threshold, ALPHA_MIN, ALPHA_MAX,
+        bg[0], bg[1], bg[2], None if bgt is None else bgt.data_ptr(),
+        dcolor.data_ptr(), color.data_ptr(), aux.data_ptr(),
+        dfeats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, lib, "blend_bwd")
+    LAUNCHES["blend_bwd" if bgt is None else "blend_bwd_bg"] += 1
+    return dfeats
 
 
-def unpack_blocks(color, aux, nt, tile_size: int, width: int, height: int) -> dict:
-    """The kernel's per-tile blocks as the image maps of `blend_tiles_ref`."""
-    def pick(x, c):
-        return untile_map(x[:, :, c], tile_size, width, height)
+class Geometry(NamedTuple):
+    """The blend's non-tensor arguments."""
+    num_tiles: int
+    tile_size: int
+    width: int
+    params: BlendParams
+    bg: tuple
 
-    return {
-        "render": untile_map(color[:, :, 0:3], tile_size, width, height),
-        "depth": pick(color, 3),
-        "normal_c": untile_map(color[:, :, 4:7], tile_size, width, height),
-        "depth_index_map": torch.round(pick(aux, 0)).int(),
-        "color_index_map": torch.round(pick(aux, 1)).int(),
-        "color_hit_weight": pick(aux, 2),
-        "depth_hit_weight": pick(aux, 3),
-        "T_map": pick(aux, 4),
-        "weight_sum": pick(aux, 5),
-        "T_final": pick(aux, 6),
-        "n_touched_entries": nt,
-    }
+
+class BlendFunction(torch.autograd.Function):
+    """The blend as a differentiable function of the (16, L) entry features:
+    K1 forward, K2 backward on the card; the plain versions on the CPU. The
+    colour block (rgb, hit depth, hit normal) carries the gradient; aux and
+    n_touched are constants."""
+
+    @staticmethod
+    def forward(ctx, feats, tile_offsets, tile_counts, K, bgt, geom: Geometry):
+        args = (feats, tile_offsets, tile_counts, geom.num_tiles,
+                geom.tile_size, geom.width, K, geom.params, geom.bg)
+        if feats.is_cuda:
+            color, aux, nt = blend_fwd(*args, bgt=bgt)
+        else:
+            color, aux, nt = blend_blocks_ref(*args, bgt=bgt)
+        ctx.save_for_backward(feats, tile_offsets, tile_counts, K, bgt,
+                              color, aux)
+        ctx.geom = geom
+        ctx.mark_non_differentiable(aux, nt)
+        return color, aux, nt
+
+    @staticmethod
+    def backward(ctx, dcolor, _daux, _dnt):
+        feats, tile_offsets, tile_counts, K, bgt, color, aux = ctx.saved_tensors
+        g = ctx.geom
+        args = (feats, tile_offsets, tile_counts, g.num_tiles, g.tile_size,
+                g.width, K, g.params, g.bg, color, aux, dcolor.contiguous())
+        if feats.is_cuda:
+            dfeats = blend_bwd(*args, bgt=bgt)
+        else:
+            dfeats = blend_bwd_ref(*args, bgt=bgt)
+        return dfeats, None, None, None, None, None
 
 
 def blend_tiles(feats: torch.Tensor, tile_offsets: torch.Tensor,
                 tile_counts: torch.Tensor, num_tiles: int, tile_size: int,
                 width: int, height: int, K: torch.Tensor, params: BlendParams,
-                bg) -> dict:
-    """Blend every tile: the kernel for tensors on the card, the plain
-    version for tensors on the CPU. Same maps either way."""
-    if feats.is_cuda:
-        return unpack_blocks(*blend_fwd(feats, tile_offsets, tile_counts,
-                                        num_tiles, tile_size, width, K,
-                                        params, bg),
-                             tile_size, width, height)
-    return blend_tiles_ref(feats, tile_offsets, tile_counts, num_tiles,
-                           tile_size, width, height, K, params, bg)
+                bg, bgt: Optional[torch.Tensor] = None,
+                tiled: bool = False) -> dict:
+    """Blend every tile, differentiably in `feats`: the kernels for tensors
+    on the card, the plain versions for tensors on the CPU. Returns the
+    maps of `blend.unpack_blocks`, as images or, `tiled`, as tile rows."""
+    geom = Geometry(num_tiles, tile_size, width, params,
+                    tuple(float(x) for x in bg))
+    color, aux, nt = BlendFunction.apply(feats, tile_offsets, tile_counts, K,
+                                         bgt, geom)
+    return unpack_blocks(color, aux, nt, tile_size, width, height, tiled)

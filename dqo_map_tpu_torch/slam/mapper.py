@@ -1,5 +1,5 @@
-"""Gaussian map lifecycle on the forward path: add, promote, error-remove,
-delete (counterpart of the forward part of `dqo_map_tpu/slam/mapper.py`).
+"""Gaussian map lifecycle: add, optimize, promote, error-remove, delete
+(counterpart of `dqo_map_tpu/slam/mapper.py`).
 
 Densification samples new Gaussians where the model render is transparent
 or wrong, drops those an unstable Gaussian already covers, lowers the
@@ -7,30 +7,53 @@ opacity of those that land on a stable surface, sets their scales from the
 nearest neighbours and appends them. Promote / delete are status updates on
 the fixed-capacity `MapState`.
 
-The optimize scans (`local_optimize`, `global_optimization`: the Adam
-steps, their gradients and the backward blend) are not ported yet. This
-Mapping runs their cadence bookkeeping, the keyframe check and list, and
-in place of each scan a scan of zero Adam steps: that leaves every
-parameter and confidence where it was, and the history merge that follows
-a scan is then the identity. So `gaussian_update_iter` must be 0.
+The optimize scans run `gaussian_update_iter` masked Adam steps on every
+`gaussian_update_frame`-th frame, each step a differentiable render (the
+blend kernels K1 forward, K2 backward) of a frame drawn from the seeded
+schedule, its loss and the update:
+
+- the local scan (`local_optimize`) optimizes the unstable Gaussians over
+  the memory frames: by default (`local_opt_mode="bg"`) compacted to those
+  rows and blended in front of the frozen stable render, the one-surface
+  background; with `"global"`, over the whole map's render. A confidence-
+  weighted history merge (slerp for the rotations) follows;
+- the keyframe scan (`global_optimization`) optimizes, on a keyframe, the
+  stable Gaussians whose rects touch the tiles of largest colour error in
+  the newest keyframes, at a tenth of the learning rate and with the
+  positions fixed.
+
+Every frame is binned once at scan entry and blended from the current
+parameters with those tile lists. The compact scans compute their loss on
+the kernels' tile rows, where the padded edge pixels are outside the
+render mask: the same masked means as in image space. With
+`gaussian_update_iter=0` no scan runs. The final whole-history pass of the
+reference's `run()` and the semantic and instance losses are not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import Config
 from ..models import gaussian_map as gm
 from ..models.cameras import Camera
 from ..models.gaussian_map import MapState
+from ..ops import binning as binning_mod
+from ..ops.blend import pack_bg_tiled, tile_map
 from ..ops.error_accum import accumulate_gaussian_error
 from ..ops.knn import knn2, scales_from_knn
+from ..ops.projection import preprocess
+from ..ops.rasterize import RenderSettings, gaussian_tile_overlap
 from ..utils import image as im
-from ..utils.math3d import normalize, quat_to_rotmat, rot_compare, trans_compare
-from .renderer import Renderer, render_state
+from ..utils.losses import ssim as ssim_fn
+from ..utils.math3d import (normalize, quat_to_rotmat, rot_compare, slerp,
+                            trans_compare)
+from .renderer import (Renderer, compute_binning_state, coverage_mask_state,
+                       render_state, state_geometry)
 
 RECEIPTS = ("dropped_entries", "tile_dropped", "clipped_cells", "num_entries",
             "entry_demand")
@@ -42,6 +65,362 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         m = m[..., None]
     denom = torch.clamp(m.sum() * (x.numel() / mask.numel()), min=1.0)
     return (x * m).sum() / denom
+
+
+# ---------------------------------------------------------------------------
+# masked Adam
+# ---------------------------------------------------------------------------
+
+OPT_FIELDS = ("xyz", "sh", "scaling", "rotation", "opacity")
+
+
+class AdamState(NamedTuple):
+    m: dict
+    v: dict
+    step: int
+
+
+def adam_init(params: dict) -> AdamState:
+    return AdamState(m={k: torch.zeros_like(v) for k, v in params.items()},
+                     v={k: torch.zeros_like(v) for k, v in params.items()},
+                     step=0)
+
+
+def adam_update(params: dict, grads: dict, st: AdamState, lrs: dict,
+                mask: torch.Tensor, b1=0.9, b2=0.999, eps=1e-15):
+    """Adam with per-group learning rates and a row mask: a masked row's
+    gradient is taken as 0 and its parameters do not move (its moments
+    decay). Bias corrections in float32."""
+    step = st.step + 1
+    bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
+    bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
+    new_p, new_m, new_v = {}, {}, {}
+    for k in params:
+        g = grads[k]
+        mk = mask
+        while mk.dim() < g.dim():
+            mk = mk[..., None]
+        g = torch.where(mk, g, 0.0)
+        m = b1 * st.m[k] + (1 - b1) * g
+        v = b2 * st.v[k] + (1 - b2) * g * g
+        upd = lrs[k] * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        new_p[k] = params[k] - torch.where(mk, upd, 0.0)
+        new_m[k] = m
+        new_v[k] = v
+    return new_p, AdamState(m=new_m, v=new_v, step=step)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _is_zero(weights: dict, k: str) -> bool:
+    w = weights.get(k, 0.0)
+    return isinstance(w, (int, float)) and float(w) == 0.0
+
+
+def compute_loss(render_out: dict, image_input: dict, params: dict,
+                 init_stat: dict, opt_mask: torch.Tensor, weights: dict,
+                 add_depth_thres: float, use_ssim: bool):
+    """The scans' loss: colour L1, depth L1 (valid depth, below the add
+    threshold), normal cosine and SSIM terms, weighted, plus the attach
+    anchor that pins low-opacity Gaussians to their initial geometry.
+    Terms whose weight is a Python zero are left out. Maps are image
+    (H, W[, C]) or tile rows (T, 256[, C]); SSIM needs images. Returns
+    (loss, report of the terms)."""
+    for key in ("semantics_color", "instance_img"):
+        if key in image_input:
+            raise NotImplementedError(f"the {key} loss is not ported")
+    render_mask = image_input["render_mask"]
+    image = render_out["render"]
+    depth_index = render_out["depth_index_map"]
+    color_loss = masked_mean(torch.abs(image - image_input["color_map"]),
+                             render_mask)
+    depth_loss = 0.0
+    if not _is_zero(weights, "depth"):
+        depth_error = render_out["depth"] - image_input["depth_map"]
+        valid_depth = ((depth_index != -1) & (image_input["depth_map"] > 0)
+                       & (depth_error < add_depth_thres) & render_mask)
+        depth_loss = masked_mean(torch.abs(depth_error), valid_depth)
+    normal_loss = 0.0
+    if not _is_zero(weights, "normal"):
+        normal, gt_normal = render_out["normal"], image_input["normal_map"]
+        cos_dist = 1.0 - torch.sum(normal * gt_normal, dim=-1) / (
+            torch.linalg.norm(normal, dim=-1)
+            * torch.linalg.norm(gt_normal, dim=-1) + 1e-8)
+        valid_normal = (render_mask & (depth_index != -1)
+                        & (~torch.all(gt_normal == 0, dim=-1)))
+        normal_loss = masked_mean(cos_dist, valid_normal)
+    ssim_loss = 0.0
+    if use_ssim:
+        ssim_loss = 1.0 - ssim_fn(image.permute(2, 0, 1),
+                                  image_input["color_map"].permute(2, 0, 1))
+    total = (weights["depth"] * depth_loss + weights["normal"] * normal_loss
+             + weights["color"] * color_loss + weights["ssim"] * ssim_loss)
+
+    attach_mask = (torch.sigmoid(init_stat["opacity"]) < 0.9) & opt_mask
+    attach = 1000.0 * (
+        masked_mean((params["scaling"] - init_stat["scaling"]) ** 2, attach_mask)
+        + masked_mean((params["xyz"] - init_stat["xyz"]) ** 2, attach_mask)
+        + masked_mean((params["rotation"] - init_stat["rotation"]) ** 2,
+                      attach_mask))
+    report = {"total_loss": total, "color_loss": color_loss,
+              "depth_loss": depth_loss, "normal_loss": normal_loss,
+              "ssim_loss": ssim_loss, "scale_loss": attach}
+    return total + attach, report
+
+
+# ---------------------------------------------------------------------------
+# the optimize scans
+# ---------------------------------------------------------------------------
+
+def _frame_cam(frames: dict, f: int) -> dict:
+    return {"w2c": frames["w2c"][f], "full_proj": frames["full_proj"][f],
+            "cam_pos": frames["cam_pos"][f], "K": frames["K"],
+            "tan_fovx": frames["tan_fovx"], "tan_fovy": frames["tan_fovy"]}
+
+
+def _substate(state: MapState, rows, status=None) -> MapState:
+    """The given rows (a slice or an index tensor) as a map of their own."""
+    sub = {f: getattr(state, f)[rows] for f in gm.FIELDS}
+    if status is not None:
+        sub["status"] = torch.full_like(sub["status"], status)
+    return MapState(**sub, count=sub["xyz"].shape[0])
+
+
+def _adam_scan(sub: MapState, iters: int, rand_idx, lrs: dict, opt_mask,
+               loss_of):
+    """`iters` masked Adam steps on the parameters of `sub`; step `it`
+    minimizes `loss_of(state, it)` -> (loss, report). Confidence grows by
+    one on the rows of `opt_mask` whose SH DC gradient is not exactly 0.
+    Returns (params, confidence, reports of (iters,) curves)."""
+    params = {k: getattr(sub, k) for k in OPT_FIELDS}
+    opt_state = adam_init(params)
+    confidence = sub.confidence
+    reports = []
+    for it in range(iters):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss, report = loss_of(sub.replace(**p), int(rand_idx[it]), p)
+        grads = torch.autograd.grad(loss, [p[k] for k in OPT_FIELDS],
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(p[k]) if g is None else g
+                 for k, g in zip(OPT_FIELDS, grads)}
+        with torch.no_grad():
+            params, opt_state = adam_update(params, grads, opt_state, lrs,
+                                            opt_mask)
+            grad_mask = torch.any(grads["sh"][:, 0, :] != 0, dim=-1)
+            confidence = confidence + (grad_mask & opt_mask).float()
+        reports.append({k: v.detach() if torch.is_tensor(v) else
+                        torch.full((), float(v), device=confidence.device)
+                        for k, v in report.items()})
+    curves = {k: torch.stack([r[k] for r in reports]) for k in reports[0]} \
+        if reports else {}
+    return params, confidence, curves
+
+
+def _receipts(reports: dict, binnings: list, iters: int):
+    for k, field in (("tile_dropped", "tile_dropped"),
+                     ("clipped_cells", "clipped"),
+                     ("num_entries", "num_entries"),
+                     ("entry_demand", "demand")):
+        reports[k] = max((getattr(b, field) for b in binnings), default=0)
+    reports["iters"] = iters
+    return reports
+
+
+def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
+                  weights, settings: RenderSettings, iters: int,
+                  status_value: int, add_depth_thres: float,
+                  subset: str = "global"):
+    """`iters` Adam steps over the Gaussians with status `status_value`,
+    each on a render of `subset` at frame `rand_idx[it]`, in image space.
+
+    frames: stacked tensors: color (F,H,W,3), depth (F,H,W), normal
+    (F,H,W,3), render_mask (F,H,W), tile_mask (F,TH,TW), w2c and full_proj
+    (F,4,4), cam_pos (F,3); K (3,3), tan_fovx / tan_fovy. rand_idx:
+    (iters,) frame choices (`Mapping._rand_schedule`). Returns (state,
+    report of (iters,) loss curves and the binning receipts)."""
+    weights = dict(weights)
+    B = state.count
+    sub = _substate(state, slice(0, B))
+    opt_mask = sub.status == status_value
+    init_stat = {k: getattr(sub, k) for k in ("opacity", "scaling", "xyz",
+                                              "rotation")}
+    n_frames = frames["w2c"].shape[0]
+    tms = frames["tile_mask"]
+    binnings = [compute_binning_state(sub, _frame_cam(frames, f), settings,
+                                      subset, tms[f]) for f in range(n_frames)]
+
+    def loss_of(st, f, p):
+        out = render_state(st, _frame_cam(frames, f), settings, subset,
+                           tms[f], binning=binnings[f])
+        image_input = {"color_map": frames["color"][f],
+                       "depth_map": frames["depth"][f],
+                       "normal_map": frames["normal"][f],
+                       "render_mask": frames["render_mask"][f]}
+        return compute_loss(out, image_input, p, init_stat, opt_mask, weights,
+                            add_depth_thres, False)
+
+    params, confidence, reports = _adam_scan(sub, iters, rand_idx, lrs,
+                                             opt_mask, loss_of)
+    new = {k: torch.cat([params[k], getattr(state, k)[B:]])
+           for k in OPT_FIELDS}
+    new["confidence"] = torch.cat([confidence, state.confidence[B:]])
+    return state.replace(**new), _receipts(reports, binnings, iters)
+
+
+def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
+                          frames: dict, rand_idx, lrs: dict, weights,
+                          settings: RenderSettings,
+                          usettings: RenderSettings, iters: int,
+                          add_depth_thres: float, use_bg: bool = True):
+    """`iters` Adam steps over the rows of `row_mask` alone, gathered once
+    into a map of their own, rendered with `usettings` in tile space, and
+    scattered back.
+
+    - `use_bg=True` (the local scan, rows = unstable): each frame's stable
+      render (with `settings`) is packed once into the one-surface
+      background operand, and every iteration blends the rows in front of
+      and behind it in depth order (K1 / K2's background variant); the hit
+      maps compose by depth, the nearer hit winning.
+    - `use_bg=False` (the keyframe scan, rows = stable rows that touch a
+      masked tile): the rows render alone, exactly as the whole stable set
+      would inside the masked tiles.
+
+    Returns (state, report of (iters,) loss curves, the binning receipts
+    and the number of background renders). Its loss is in tile space, so
+    it has no SSIM term."""
+    weights = dict(weights)
+    uidx = torch.nonzero(row_mask)[:, 0]
+    sub = _substate(state, uidx, gm.UNSTABLE)
+    valid_u = torch.ones(sub.count, dtype=torch.bool, device=state.device)
+    init_stat = {k: getattr(sub, k) for k in ("opacity", "scaling", "xyz",
+                                              "rotation")}
+    n_frames = frames["w2c"].shape[0]
+    ts, W, H = settings.tile_size, settings.width, settings.height
+    gt = [{"color_map": tile_map(frames["color"][f], ts, W, H),
+           "depth_map": tile_map(frames["depth"][f], ts, W, H),
+           "normal_map": tile_map(frames["normal"][f], ts, W, H),
+           "render_mask": tile_map(frames["render_mask"][f], ts, W, H)}
+          for f in range(n_frames)]
+    bgs, bgts = [], []
+    if use_bg:
+        with torch.no_grad():
+            for f in range(n_frames):
+                bg = render_state(state, _frame_cam(frames, f), settings,
+                                  "stable", frames["tile_mask"][f], tiled=True)
+                bgs.append({k: bg[k] for k in ("render", "depth", "normal",
+                                               "depth_index_map", "T_map")})
+                bgts.append(pack_bg_tiled(
+                    bg["render"],
+                    torch.where(bg["depth_index_map"] >= 0, bg["depth"], 1e30),
+                    bg["T_final"]))
+    binnings = [compute_binning_state(sub, _frame_cam(frames, f), usettings,
+                                      "global", frames["tile_mask"][f])
+                for f in range(n_frames)]
+
+    def loss_of(st, f, p):
+        u = render_state(st, _frame_cam(frames, f), usettings, "global",
+                         binning=binnings[f],
+                         bg_tiled=bgts[f] if use_bg else None, tiled=True)
+        out = u
+        if use_bg:
+            bg = bgs[f]
+            hit_u = u["depth_index_map"] >= 0
+            hit_bg = bg["depth_index_map"] >= 0
+            u_wins = hit_u & ((~hit_bg) | (u["depth"] <= bg["depth"]))
+            out = {"render": u["render"],
+                   "depth": torch.where(u_wins, u["depth"], bg["depth"]),
+                   "normal": torch.where(u_wins[..., None], u["normal"],
+                                         bg["normal"]),
+                   "depth_index_map": torch.where(u_wins, u["depth_index_map"],
+                                                  bg["depth_index_map"]),
+                   "T_map": u["T_map"] * bg["T_map"]}
+        return compute_loss(out, gt[f], p, init_stat, valid_u, weights,
+                            add_depth_thres, False)
+
+    if sub.count == 0:
+        reports = {}
+    else:
+        params, confidence, reports = _adam_scan(sub, iters, rand_idx, lrs,
+                                                 valid_u, loss_of)
+        new = {}
+        for k in OPT_FIELDS:
+            new[k] = getattr(state, k).clone()
+            new[k][uidx] = params[k]
+        new["confidence"] = state.confidence.clone()
+        new["confidence"][uidx] = confidence
+        state = state.replace(**new)
+    reports = _receipts(reports, binnings, iters if sub.count else 0)
+    reports["bg_renders"] = len(bgts)
+    return state, reports
+
+
+def touched_rows(state: MapState, frames: dict, settings: RenderSettings,
+                 status_value: int) -> torch.Tensor:
+    """(capacity,) bool: the rows of status `status_value` whose projected
+    rect overlaps a masked-on tile in any of the stacked frames (the
+    keyframe scan's row selector)."""
+    B = state.count
+    TH, TW = binning_mod.tile_grid_size(settings.width, settings.height,
+                                        settings.tile_size)
+    xyz, sc, ro, _ = state_geometry(state)
+    hit = torch.zeros(B, dtype=torch.bool, device=state.device)
+    with torch.no_grad():
+        for f in range(frames["w2c"].shape[0]):
+            pre = preprocess(xyz, sc, ro, _frame_cam(frames, f),
+                             settings.color_sigma, settings.width,
+                             settings.height, settings.scale_modifier)
+            hit = hit | gaussian_tile_overlap(pre, frames["tile_mask"][f],
+                                              settings.tile_size, TH, TW)
+    hit = hit & (state.status[:B] == status_value)
+    return torch.cat([hit, torch.zeros(state.capacity - B, dtype=torch.bool,
+                                       device=state.device)])
+
+
+def history_merge(state: MapState, history: dict, confidence_pre: torch.Tensor,
+                  opt_mask: torch.Tensor, max_weight: float = 0.5) -> MapState:
+    """Pull the optimized rows back towards their values before the scan,
+    by w = clip(max_weight * confidence before / confidence after): a lerp
+    for positions, SH and log-scales, a slerp for the rotations (which it
+    leaves normalized)."""
+    w = torch.clamp(max_weight * confidence_pre / (state.confidence + 1e-6),
+                    0.0, 1.0)[:, None]
+    m = opt_mask[:, None]
+    xyz = torch.where(m, history["xyz"] * w + (1 - w) * state.xyz, state.xyz)
+    sh = torch.where(m[..., None], history["sh"] * w[..., None]
+                     + (1 - w[..., None]) * state.sh, state.sh)
+    scaling = torch.where(m, history["scaling"] * w + (1 - w) * state.scaling,
+                          state.scaling)
+    rot = slerp(history["rotation_act"], normalize(state.rotation), 1 - w)
+    rotation = torch.where(m, rot, state.rotation)
+    return state.replace(xyz=xyz, sh=sh, scaling=scaling, rotation=rotation)
+
+
+def render_range_step(state: MapState, cam: dict, settings: RenderSettings,
+                      global_opt: bool, sample_ratio: float,
+                      gt_color: Optional[torch.Tensor], tile_size: int = 16):
+    """The render and tile masks of a scan frame: for the keyframe scan
+    (`global_opt`, `sample_ratio` > 0) the `sample_ratio` of the tiles with
+    the largest colour error of the stable render; else the tiles more than
+    half covered by the unstable render. Returns (render_mask (H,W) bool,
+    tile_mask (TH,TW) int32)."""
+    subset = "stable" if global_opt else "unstable"
+    with torch.no_grad():
+        out = render_state(state, cam, settings, subset)
+    T_map = out["T_map"]
+    if global_opt and sample_ratio > 0:
+        image_diff = torch.abs(out["render"] - gt_color).sum(dim=-1)
+        image_diff = torch.where(out["render"].sum(dim=-1) == 0, 0.0,
+                                 image_diff)
+        tile_mask = im.colorerror_to_tilemask(image_diff, tile_size,
+                                              sample_ratio)
+        render_mask = im.tilemask_to_pixelmask(tile_mask, tile_size,
+                                               *T_map.shape)
+    else:
+        render_mask = T_map != 1
+        tile_mask = im.transmission_to_tilemask(render_mask, tile_size, 0.5)
+    return render_mask, tile_mask
 
 
 def _normals_of(rotation: torch.Tensor, scaling: torch.Tensor) -> torch.Tensor:
@@ -232,21 +611,32 @@ def error_remove_from(state: MapState, out: dict, frame_map: dict,
 # host-side Mapping orchestrator
 # ---------------------------------------------------------------------------
 
+LOCAL_OPT_MODES = ("bg", "global")
+
+
 class Mapping:
     def __init__(self, cfg: Config, width: int, height: int, device="cuda"):
         args = cfg.map
-        if int(args.gaussian_update_iter) != 0:
-            raise NotImplementedError(
-                "the optimize scans (gaussian_update_iter > 0) come in "
-                "slice 2 of the port; set gaussian_update_iter=0")
+        self.local_opt_mode = str(getattr(args, "local_opt_mode", "bg"))
+        if self.local_opt_mode not in LOCAL_OPT_MODES:
+            raise ValueError(f"local_opt_mode must be one of {LOCAL_OPT_MODES}, "
+                             f"got {self.local_opt_mode!r}")
         self.cfg = cfg
         self.args = args
+        self.opt = cfg.opt
         self.width = width
         self.height = height
         self.device = torch.device(device)
         self.state = gm.empty_map(args.capacity, self.device)
         self.renderer = Renderer(args, width, height)
         self.settings = self.renderer.settings
+        # the unstable scans blend in 128-entry chunks with their own
+        # per-Gaussian tile cap: both change the per-tile entry cap and the
+        # R-window clip, so they change the image
+        self.usettings = self.settings._replace(
+            max_tiles_per_gaussian=int(
+                getattr(args, "local_max_tiles_per_gaussian", 8) or 8),
+            chunk=128)
         self.time = 0
         self.memory_length = args.memory_length
         self.processed_frames: list = []    # [(cam_inputs, frame_map)]
@@ -256,8 +646,16 @@ class Mapping:
         self.did_optimize = False
         self.model_map: Optional[dict] = None
         self.generator = torch.Generator(device=self.device).manual_seed(2024)
+        # the scans' frame schedule, drawn as the JAX package draws it
+        self._host_rng = np.random.default_rng(2024)
         self.receipts = dict.fromkeys(RECEIPTS, 0)   # max over the renders
         self.renders = 0
+        # scans run, their Adam steps, and the renders they make besides
+        # the steps' own: stable backgrounds and keyframe range renders
+        self.scan_counts = dict.fromkeys(
+            ("local", "global", "iters", "bg_renders", "range_renders"), 0)
+        # (kind, (iters,) objective curve) of every scan run
+        self.scan_log: list = []
 
     # --------------------------------------------------------------
     def _uniform_draws(self, n: int):
@@ -349,10 +747,152 @@ class Mapping:
         return False
 
     # --------------------------------------------------------------
+    def _lrs(self, coef_feature=1.0, coef_scaling=1.0, coef_rotation=1.0,
+             lr_scale=1.0, position_lr=None) -> dict:
+        """Per-group learning rates; the SH DC at `feature_lr`, the rest of
+        the SH at a twentieth of it."""
+        o = self.opt
+        pos = o.position_lr if position_lr is None else position_lr
+        sh_lr = torch.full((gm.SH_K, 1),
+                           o.feature_lr / 20.0 * coef_feature * lr_scale,
+                           device=self.device)
+        sh_lr[0] = o.feature_lr * coef_feature * lr_scale
+        return {"xyz": pos * lr_scale, "sh": sh_lr[None],
+                "scaling": o.scaling_lr * coef_scaling * lr_scale,
+                "rotation": o.rotation_lr * coef_rotation * lr_scale,
+                "opacity": o.opacity_lr * lr_scale}
+
+    def _weights(self) -> dict:
+        o = self.opt
+        return {"color": o.color_weight, "depth": o.depth_weight,
+                "normal": o.normal_weight, "ssim": o.ssim_weight,
+                "semantic": o.semantic_color_weight,
+                "instance": o.instance_weight}
+
+    def _weights_t(self, **overrides) -> tuple:
+        """The loss weights as sorted (name, value) pairs; a Python zero
+        leaves its term out of the loss."""
+        d = self._weights()
+        d.update(overrides)
+        return tuple(sorted(d.items()))
+
+    def _stack_frames(self, entries: list, tile_size: int) -> dict:
+        """entries: dicts of color / depth / normal maps, render_mask,
+        tile_mask (None: every tile) and cam (render inputs)."""
+        for e in entries:
+            for key in ("semantics_color", "instance_img"):
+                if e.get(key) is not None:
+                    raise NotImplementedError(f"the {key} loss is not ported")
+        TH, TW = binning_mod.tile_grid_size(self.width, self.height, tile_size)
+        ones = torch.ones((TH, TW), dtype=torch.int32, device=self.device)
+        cam0 = entries[0]["cam"]
+        return {
+            "color": torch.stack([e["color"] for e in entries]),
+            "depth": torch.stack([e["depth"] for e in entries]),
+            "normal": torch.stack([e["normal"] for e in entries]),
+            "render_mask": torch.stack([e["render_mask"] for e in entries]),
+            "tile_mask": torch.stack([ones if e["tile_mask"] is None
+                                      else e["tile_mask"] for e in entries]),
+            "w2c": torch.stack([e["cam"]["w2c"] for e in entries]),
+            "full_proj": torch.stack([e["cam"]["full_proj"] for e in entries]),
+            "cam_pos": torch.stack([e["cam"]["cam_pos"] for e in entries]),
+            "K": cam0["K"], "tan_fovx": cam0["tan_fovx"],
+            "tan_fovy": cam0["tan_fovy"],
+        }
+
+    def _rand_schedule(self, iters: int, n_frames: int) -> np.ndarray:
+        """A uniform frame choice per Adam step, the second half pinned to
+        the newest frame, from the mapper's seeded generator."""
+        idx = self._host_rng.integers(0, n_frames, size=iters).astype(np.int32)
+        idx[iters // 2 + 1:] = n_frames - 1
+        return idx
+
+    def _count_scan(self, kind: str, reports: dict):
+        self.scan_counts[kind] += 1
+        self.scan_counts["iters"] += reports["iters"]
+        self.scan_counts["bg_renders"] += reports.get("bg_renders", 0)
+        self.receipts["tile_dropped"] = max(self.receipts["tile_dropped"],
+                                            reports["tile_dropped"])
+        self.receipts["clipped_cells"] = max(self.receipts["clipped_cells"],
+                                             reports["clipped_cells"])
+        if reports["iters"]:
+            self.scan_log.append((kind, (reports["total_loss"]
+                                         + reports["scale_loss"]).detach()))
+
+    def local_optimize(self, frame: Camera):
+        """Optimize the unstable Gaussians over the memory frames, then
+        merge them back towards their values before the scan."""
+        ts = self.settings.tile_size
+        entries = []
+        for cam, fm in self.processed_frames:
+            # the tiles the unstable subset's rects cover (no render)
+            tm = coverage_mask_state(self.state, cam, self.settings, "unstable")
+            rm = im.tilemask_to_pixelmask(tm, ts, self.height, self.width)
+            entries.append({"color": fm["color_map"], "depth": fm["depth_map"],
+                            "normal": fm["normal_map_w"], "render_mask": rm,
+                            "tile_mask": tm, "cam": cam,
+                            "semantics_color": fm.get("semantics"),
+                            "instance_img": fm.get("instance_img")})
+        frames = self._stack_frames(entries, ts)
+        iters = int(self.args.gaussian_update_iter)
+        rand_idx = self._rand_schedule(iters, len(entries))
+        confidence_pre = self.state.confidence
+        history = {"xyz": self.state.xyz, "sh": self.state.sh,
+                   "scaling": self.state.scaling,
+                   "rotation_act": normalize(self.state.rotation)}
+        opt_mask = self.state.unstable_mask()
+        if self.local_opt_mode == "global":
+            self.state, reports = optimize_scan(
+                self.state, frames, rand_idx, self._lrs(), self._weights_t(),
+                self.settings, iters, gm.UNSTABLE, self.args.add_depth_thres)
+        else:
+            self.state, reports = compact_optimize_scan(
+                self.state, opt_mask, frames, rand_idx, self._lrs(),
+                self._weights_t(), self.settings, self.usettings, iters,
+                self.args.add_depth_thres, use_bg=True)
+        self._count_scan("local", reports)
+        self.state = history_merge(self.state, history, confidence_pre,
+                                   opt_mask, self.args.history_merge_max_weight)
+
+    def global_optimization(self, select_keyframe_num: int = -1,
+                            is_end: bool = False):
+        """The keyframe scan: the stable Gaussians that touch the tiles of
+        largest colour error in the newest `select_keyframe_num` keyframes,
+        at a tenth of the learning rate, positions fixed."""
+        if select_keyframe_num == -1 or is_end:
+            raise NotImplementedError(
+                "the final whole-history optimization of run() is not ported")
+        if self.counts()[1] == 0 or not self.keyframes:
+            return
+        ts = self.settings.tile_size
+        n_sel = min(select_keyframe_num, len(self.keyframes))
+        entries = []
+        for _, cam, keymap in (self.keyframes[-(i + 1)] for i in range(n_sel)):
+            rm, tm = render_range_step(self.state, cam, self.settings, True,
+                                       0.4, keymap["color"], ts)
+            self.scan_counts["range_renders"] += 1
+            entries.append({"color": keymap["color"], "depth": keymap["depth"],
+                            "normal": keymap["normal"], "render_mask": rm,
+                            "tile_mask": tm, "cam": cam})
+        frames = self._stack_frames(entries, ts)
+        iters = int(self.args.gaussian_update_iter)
+        lrs = self._lrs(lr_scale=0.1, position_lr=0.0)
+        rand_idx = self._rand_schedule(iters, n_sel)
+        mask = touched_rows(self.state, frames, self.settings, gm.STABLE)
+        if int(mask.sum()) == 0:
+            return
+        self.state, reports = compact_optimize_scan(
+            self.state, mask, frames, rand_idx, lrs, self._weights_t(),
+            self.settings, self.settings, iters, self.args.add_depth_thres,
+            use_bg=False)
+        self._count_scan("global", reports)
+
     def mapping(self, frame: Camera, frame_map: dict, frame_id: int) -> bool:
         """Per-frame mapping step up to, not including, the promote /
         error-remove / delete tail: the caller runs `finalize_frame` with
-        the end-of-frame model render."""
+        the end-of-frame model render. On the optimize cadence it runs the
+        local scan, or on a keyframe over a map with stable Gaussians the
+        keyframe scan."""
         self.gaussians_add(frame, frame_map, frame_id)
         self.processed_frames.append((frame.render_inputs(self.device), frame_map))
         if len(self.processed_frames) > self.memory_length:
@@ -363,8 +903,11 @@ class Mapping:
             self.did_optimize = True
             self.optimize_frames_ids.append(frame_id)
             is_keyframe = self.check_keyframe(frame, frame_map, frame_id)
-            # here the reference runs its optimize scan (local, or global on
-            # a keyframe): zero Adam steps, which change nothing
+            if int(self.args.gaussian_update_iter) > 0:
+                if not is_keyframe or self.counts()[1] <= 0:
+                    self.local_optimize(frame)
+                else:
+                    self.global_optimization(self.args.global_keyframe_num)
         return is_keyframe
 
     def finalize_frame(self, out: dict, frame_map: dict):

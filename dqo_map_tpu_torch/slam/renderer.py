@@ -4,7 +4,8 @@ reference's map dict.
 
 Alive slots are packed below the `count` watermark, so a render takes the
 prefix [0:count]; dead slots inside it are culled by the valid mask. Slot
-ids in the index maps are therefore global.
+ids in the index maps are therefore global. A render is differentiable in
+the state's parameter tensors.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Optional
 import torch
 
 from ..models.gaussian_map import STABLE, UNSTABLE, MapState
-from ..ops.rasterize import RenderSettings, eval_colors, rasterize
+from ..ops.rasterize import (RenderSettings, compute_binning,
+                             coverage_tile_mask, eval_colors, rasterize)
 from ..utils.math3d import normalize
 
 
@@ -37,28 +39,58 @@ def subset_mask(state: MapState, subset: str) -> torch.Tensor:
     raise ValueError(subset)
 
 
+def state_geometry(state: MapState, subset: str = "global"):
+    """Positions, activated scales and rotations of the alive prefix
+    [0:count], and the subset's mask over it."""
+    B = state.count
+    return (state.xyz[:B], torch.exp(state.scaling[:B]),
+            normalize(state.rotation[:B]), subset_mask(state, subset)[:B])
+
+
 def state_render_args(state: MapState, cam_inputs: dict,
                       settings: RenderSettings, subset: str = "global") -> dict:
     """The rasterizer's per-gaussian inputs for a MapState subset, over the
     alive prefix [0:count]."""
     B = state.count
-    xyz = state.xyz[:B]
+    xyz, scales, rots, valid = state_geometry(state, subset)
     colors = eval_colors(state.sh[:B], xyz, cam_inputs["cam_pos"],
                          settings.sh_degree)
-    return dict(means3d=xyz, scales=torch.exp(state.scaling[:B]),
-                rots=normalize(state.rotation[:B]),
+    return dict(means3d=xyz, scales=scales, rots=rots,
                 opacities=torch.sigmoid(state.opacity[:B]), colors=colors,
-                valid_mask=subset_mask(state, subset)[:B])
+                valid_mask=valid)
+
+
+def compute_binning_state(state: MapState, cam_inputs: dict,
+                          settings: RenderSettings, subset: str = "global",
+                          tile_mask: Optional[torch.Tensor] = None):
+    """The tile binning of a MapState subset, for `render_state(...,
+    binning=...)` at the same camera while the map's slots stay put."""
+    xyz, scales, rots, valid = state_geometry(state, subset)
+    return compute_binning(xyz, scales, rots, cam_inputs, settings,
+                           tile_mask=tile_mask, valid_mask=valid)
+
+
+def coverage_mask_state(state: MapState, cam_inputs: dict,
+                        settings: RenderSettings, subset: str = "unstable"):
+    """(TH, TW) tile mask of the tiles a MapState subset's projected rects
+    cover (`coverage_tile_mask`)."""
+    xyz, scales, rots, valid = state_geometry(state, subset)
+    return coverage_tile_mask(xyz, scales, rots, cam_inputs, settings,
+                              valid_mask=valid)
 
 
 def render_state(state: MapState, cam_inputs: dict, settings: RenderSettings,
                  subset: str = "global",
                  tile_mask: Optional[torch.Tensor] = None,
-                 with_n_touched: bool = False) -> dict:
+                 with_n_touched: bool = False, binning=None,
+                 bg_tiled: Optional[torch.Tensor] = None,
+                 tiled: bool = False) -> dict:
     """Render a MapState subset. `n_touched` comes back at full capacity
-    (zeros unless asked for)."""
+    (zeros unless asked for). `binning`, `bg_tiled` and `tiled` are those
+    of `rasterize`."""
     out = rasterize(cam=cam_inputs, settings=settings, tile_mask=tile_mask,
-                    with_n_touched=with_n_touched,
+                    with_n_touched=with_n_touched, binning=binning,
+                    bg_tiled=bg_tiled, tiled=tiled,
                     **state_render_args(state, cam_inputs, settings, subset))
     n_touched = torch.zeros(state.capacity, dtype=torch.int32,
                             device=state.device)

@@ -3,8 +3,10 @@
 
 The port runs synchronously: `step` waits for the device at the end of
 tracking and at the end of mapping, so the two times it returns are the
-device's. The final global optimization, the map export and the object
-layer of the reference's `run` are not ported yet.
+device's. `step` runs the whole per-frame loop, the optimize scans
+included. The reference's `run` (its final whole-history optimization and
+the map export), the feature pose backend, the object layer and
+multi-device mapping are not ported yet.
 """
 
 from __future__ import annotations

@@ -140,6 +140,22 @@ def transmission_to_tilemask(pixelmask: torch.Tensor, stride: int,
     return (meanpool(pixelmask.float(), stride) > tile_mask_ratio).int()
 
 
+def colorerror_to_tilemask(color_error: torch.Tensor, stride: int,
+                           top_ratio: float = 0.4) -> torch.Tensor:
+    """The top `top_ratio` of the tiles by mean colour error. Of tiles with
+    equal error the lower index is taken first, as `lax.top_k` orders
+    ties."""
+    if color_error.dim() == 3:
+        color_error = color_error[..., 0]
+    down = meanpool(color_error, stride)
+    k = int(down.numel() * top_ratio)
+    mask = torch.zeros(down.numel(), dtype=torch.int32, device=down.device)
+    if k > 0:
+        order = torch.sort(down.reshape(-1), descending=True, stable=True).indices
+        mask[order[:k]] = 1
+    return mask.reshape(down.shape)
+
+
 def tilemask_to_pixelmask(tile_mask: torch.Tensor, stride: int, H: int,
                           W: int) -> torch.Tensor:
     up = tile_mask.repeat_interleave(stride, 0).repeat_interleave(stride, 1)

@@ -1,5 +1,5 @@
-"""3D math: quaternions, SE(3), trajectory alignment (counterpart of
-`dqo_map_tpu/utils/math3d.py`, the part the forward path calls).
+"""3D math: quaternions, SE(3), slerp, trajectory alignment (counterpart of
+`dqo_map_tpu/utils/math3d.py`, the part the port calls).
 
 Quaternions are (w, x, y, z), as in the rasterizer.
 """
@@ -72,6 +72,27 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     T[:3, :3] = e_w
     T[:3, 3] = j @ v
     return T
+
+
+def slerp(v0: torch.Tensor, v1: torch.Tensor, t: torch.Tensor,
+          DOT_THRESHOLD: float = 0.9995) -> torch.Tensor:
+    """Batched spherical interpolation of quaternions / vectors from v0
+    (t = 0) to v1 (t = 1), (..., C) with t (..., 1); a plain lerp where
+    the two are nearly colinear, and a guarded sin."""
+    v0n = normalize(v0)
+    v1n = normalize(v1)
+    dot = torch.sum(v0n * v1n, dim=-1)
+    dot_mag = torch.abs(dot)
+    gotta_lerp = torch.isnan(dot_mag) | (dot_mag > DOT_THRESHOLD)
+    lerped = v0 + (v1 - v0) * t
+    theta_0 = torch.arccos(torch.clamp(dot, -1.0, 1.0))[..., None]
+    sin_theta_0 = torch.sin(theta_0)
+    safe_sin = torch.where(torch.abs(sin_theta_0) < 1e-6, 1.0, sin_theta_0)
+    theta_t = theta_0 * t
+    s0 = torch.sin(theta_0 - theta_t) / safe_sin
+    s1 = torch.sin(theta_t) / safe_sin
+    slerped = s0 * v0 + s1 * v1
+    return torch.where(gotta_lerp[..., None], lerped, slerped)
 
 
 def rot_compare(prev_rot: np.ndarray, curr_rot: np.ndarray):

@@ -1,7 +1,8 @@
 """Spherical harmonics, degree 0-3 (counterpart of `dqo_map_tpu/utils/sh.py`).
 
 SH layout is (..., K, 3): K = (deg+1)^2 RGB coefficient vectors, DC first.
-Colors are offset by +0.5 and clamped at 0, as the rasterizer does.
+Colors are offset by +0.5 and clamped at 0, as the rasterizer does, with
+the reference's gradient at the clamp.
 """
 
 from __future__ import annotations
@@ -47,4 +48,6 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     K = (deg + 1) ** 2
     basis = sh_basis(deg, dirs)
     result = torch.sum(basis[..., None] * sh[..., :K, :], dim=-2) + 0.5
-    return torch.clamp(result, min=0.0)
+    # maximum, not clamp: a colour exactly at 0 (a black sample's DC) passes
+    # half its gradient, as in the reference
+    return torch.maximum(result, result.new_zeros(()))
