@@ -29,7 +29,12 @@ against their plain PyTorch versions.
    1e-5 (depth 1e-4). K2: each gradient row to 1e-4 of its largest
    magnitude (the CTA sums over the tile's pixels in another order), and
    the zero structure equal but at a few places of float32 cancellation
-   (see `check_bwd`).
+   (see `check_bwd`). A kernel's `ms` is its own device time per launch
+   (the profiler's, `device_ms`), `wrapper_ms` the CUDA-event time of a
+   whole wrapper call; for K2 also the time with its tiles launched in
+   tile order instead of the binning's `tile_order` (most entries first),
+   and the most crowded tile's alone. Each row carries the live entries
+   per non-empty tile of its call (`tile_entries`).
 4. Checks the output: finite maps, every frame tracked, the render close
    to the frame.
 
@@ -105,13 +110,15 @@ class Recorder:
         self.last = {}
 
     def __enter__(self):
-        def fwd(*a, bgt=None):
-            self.last["blend_fwd_bg" if bgt is not None else "blend_fwd"] = (a, bgt)
-            return self.fwd(*a, bgt=bgt)
+        def fwd(*a, **kw):
+            bg = kw.get("bgt") is not None
+            self.last["blend_fwd_bg" if bg else "blend_fwd"] = (a, kw)
+            return self.fwd(*a, **kw)
 
-        def bwd(*a, bgt=None):
-            self.last["blend_bwd_bg" if bgt is not None else "blend_bwd"] = (a, bgt)
-            return self.bwd(*a, bgt=bgt)
+        def bwd(*a, **kw):
+            bg = kw.get("bgt") is not None
+            self.last["blend_bwd_bg" if bg else "blend_bwd"] = (a, kw)
+            return self.bwd(*a, **kw)
 
         self.mod.blend_fwd, self.mod.blend_bwd = fwd, bwd
         return self
@@ -272,7 +279,8 @@ def quality(system, cams, infos, min_depth=0.1, max_depth=8.0) -> dict:
 
 def time_cuda(fn, reps: int) -> float:
     """Mean ms per call of `fn` over `reps` calls, by CUDA events, after
-    one untimed call."""
+    one untimed call: the wrapper's whole window, its other launches and
+    the host's pace included."""
     import torch
     fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -285,34 +293,76 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_row(name, launches, max_err, ms, plain_ms, n_bytes, pairs, ops):
+def device_ms(fn, symbol: str, reps: int) -> float:
+    """Mean device time in ms of one launch of the kernel whose name holds
+    `symbol`, over `reps` calls of `fn` after one untimed call: the
+    profiler's own device time of that kernel, so neither the wrapper's
+    other launches nor the host's pace count. The profiler can lose some
+    kernel records in a long process; the mean is over those it kept, and
+    a window that kept fewer than half is measured again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and symbol in e.key]
+        n = sum(e.count for e in hits)
+        if 2 * n >= reps:
+            return sum(e.self_device_time_total for e in hits) / n / 1e3
+    raise RuntimeError(f"the profiler saw {n} launches of {symbol} in "
+                       f"{reps} calls")
+
+
+def tile_entries(tile_counts, align: int, max_chunks: int) -> dict:
+    """Live entries per non-empty tile (mean, p99, max), the align-sized
+    blocks they fill, and the tiles at the per-tile cap."""
+    import torch
+    c = tile_counts[tile_counts > 0].double()
+    return {"tiles": int(c.numel()), "mean": float(c.mean()),
+            "p99": float(torch.quantile(c, 0.99)), "max": int(c.max()),
+            "align": align,
+            "blocks": int(((tile_counts + align - 1) // align).sum()),
+            "at_cap": int((tile_counts == align * max_chunks).sum())}
+
+
+def kernel_row(name, launches, max_err, times, n_bytes, pairs, ops, tiles):
+    ms, wrapper_ms, plain_ms = times
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = pairs * ops / PEAK_F32_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"{name}: {ms:.4f} ms per launch, plain version {plain_ms:.1f} ms, "
+    print(f"{name}: {ms:.4f} ms device time per launch ({wrapper_ms:.4f} ms "
+          f"through the wrapper), plain version {plain_ms:.1f} ms, "
           f"bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB -> "
           f"{bytes_ms:.4f} ms; {pairs} pixel-entry pairs x {ops} ops -> "
           f"{ops_ms:.4f} ms); launches {launches}, max |diff| {max_err:.3g}")
+    print(f"{name}: live entries per non-empty tile {tiles}")
     return {
         "name": name, "route": "cuda",
         "source": "dqo_map_tpu_torch/csrc/"
                   + ("blend_fwd.cu" if "fwd" in name else "blend_bwd.cu"),
         "replaces": REPLACES[name], "launches": launches,
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "max_abs_err": max_err, "ms": ms, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "library_ms": None, "tile_entries": tiles,
     }
 
 
-def check_fwd(name, args, bgt, launches) -> dict:
+def check_fwd(name, args, kw, launches, layout) -> dict:
     """K1 (plain or background variant) against its plain version on
     recorded inputs: the index channels and n_touched exactly, the depth
     channels to 1e-4, the other floats to 1e-5."""
     import torch
     from dqo_map_tpu_torch.ops.blend import blend_blocks_ref
     from dqo_map_tpu_torch.ops.blend_cuda import blend_fwd
-    color, aux, nt = blend_fwd(*args, bgt=bgt)
+    bgt = kw.get("bgt")
+    color, aux, nt = blend_fwd(*args, **kw)
     stats = {}
     rcolor, raux, rnt = blend_blocks_ref(*args, bgt=bgt, stats=stats)
     torch.cuda.synchronize()
@@ -332,8 +382,9 @@ def check_fwd(name, args, bgt, launches) -> dict:
         if not err <= tol:
             raise RuntimeError(f"{name}: {what} off by {err} > {tol}")
         max_err = max(max_err, err)
-    ms = time_cuda(lambda: blend_fwd(*args, bgt=bgt), reps=20)
-    plain_ms = time_cuda(lambda: blend_blocks_ref(*args, bgt=bgt), reps=2)
+    times = (device_ms(lambda: blend_fwd(*args, **kw), "blend_fwd", 20),
+             time_cuda(lambda: blend_fwd(*args, **kw), reps=20),
+             time_cuda(lambda: blend_blocks_ref(*args, bgt=bgt), reps=2))
     T, n_live = args[3], int(args[2].sum())
     # live entries' 16 feature rows in and n_touched out (the padding is
     # never read), each tile's offset and count, the two (T, 256, 8) output
@@ -342,17 +393,22 @@ def check_fwd(name, args, bgt, launches) -> dict:
                + (T * 256 * 5 * 4 if bgt is not None else 0))
     print(f"{name} vs plain version on {T} tiles, {n_live} live entries: "
           "index maps and n_touched equal")
-    return kernel_row(name, launches, max_err, ms, plain_ms, n_bytes,
-                      stats["pairs"], OPS_FWD_BG if bgt is not None else OPS_FWD)
+    return kernel_row(name, launches, max_err, times, n_bytes, stats["pairs"],
+                      OPS_FWD_BG if bgt is not None else OPS_FWD,
+                      tile_entries(args[2], *layout))
 
 
-def check_bwd(name, args, bgt, launches) -> dict:
+def check_bwd(name, args, kw, launches, layout) -> dict:
     """K2 (plain or background variant) against its plain version on
     recorded inputs: each gradient row to 1e-4 of its largest magnitude."""
     import torch
     from dqo_map_tpu_torch.ops.blend import GRAD_ROWS, blend_bwd_ref
     from dqo_map_tpu_torch.ops.blend_cuda import blend_bwd
-    got = blend_bwd(*args, bgt=bgt)
+    bgt = kw.get("bgt")
+    if kw.get("tile_order") is None:
+        raise RuntimeError(f"{name}: the main path launched K2 without the "
+                           "binning's tile_order")
+    got = blend_bwd(*args, **kw)
     stats = {}
     ref = blend_bwd_ref(*args, bgt=bgt, stats=stats)
     torch.cuda.synchronize()
@@ -380,8 +436,24 @@ def check_bwd(name, args, bgt, launches) -> dict:
                     f"by {flip_err} > {FLIP_TOL} x row max {scale}")
             max_flip_rel = max(max_flip_rel, flip_err / scale)
         max_err = max(max_err, err)
-    ms = time_cuda(lambda: blend_bwd(*args, bgt=bgt), reps=20)
-    plain_ms = time_cuda(lambda: blend_bwd_ref(*args, bgt=bgt), reps=2)
+    times = (device_ms(lambda: blend_bwd(*args, **kw), "blend_bwd", 20),
+             time_cuda(lambda: blend_bwd(*args, **kw), reps=20),
+             time_cuda(lambda: blend_bwd_ref(*args, bgt=bgt), reps=2))
+    # the launch order's worth, and the floor the most crowded tile sets:
+    # the tiles in tile order, and the first tile of the order alone (the
+    # others' counts 0, so their CTAs leave at once)
+    counts, first = args[2], kw["tile_order"][0]
+    tiles = torch.arange(len(counts), device=counts.device)
+    crowded = args[:2] + (torch.where(tiles == first, counts, 0),) + args[3:]
+    order_ms = {
+        "layout_order_ms": device_ms(
+            lambda: blend_bwd(*args, **dict(kw, tile_order=None)),
+            "blend_bwd", 20),
+        "crowded_tile_ms": device_ms(lambda: blend_bwd(*crowded, **kw),
+                                     "blend_bwd", 20)}
+    print(f"{name}: {order_ms['layout_order_ms']:.4f} ms with the tiles in "
+          f"tile order; the most crowded tile alone "
+          f"{order_ms['crowded_tile_ms']:.4f} ms")
     T, n_live = args[3], int(args[2].sum())
     # per live entry: 16 feature rows in, 14 gradient rows out; per pixel
     # the cotangent's 7 channels, 3 of the colour block, 2 of the aux block
@@ -391,8 +463,9 @@ def check_bwd(name, args, bgt, launches) -> dict:
     print(f"{name} vs plain version on {T} tiles, {n_live} live entries: "
           f"rows to 1e-4 of their max; zero structure equal but at {n_flip} "
           f"places, largest there {max_flip_rel:.3g} of its row's max")
-    return kernel_row(name, launches, max_err, ms, plain_ms, n_bytes,
-                      stats["pairs"], OPS_BWD)
+    return dict(kernel_row(name, launches, max_err, times, n_bytes,
+                           stats["pairs"], OPS_BWD,
+                           tile_entries(args[2], *layout)), **order_ms)
 
 
 def main(argv=None) -> int:
@@ -467,12 +540,18 @@ def main(argv=None) -> int:
     T = b.tile_offsets.shape[0] - 1
     fwd_args = (feats, b.tile_offsets, b.tile_counts, T, s.tile_size,
                 s.width, cin["K"], blend_params(s), s.bg)
+    # each recorded call's entry layout: the keyframe scan and the model
+    # renders bin with `settings`, the local scans with `usettings`
+    layout = {k: (st.chunk, st.max_chunks_per_tile) for k, st in (
+        ("blend_fwd", s), ("blend_bwd", s), ("blend_fwd_bg", m.usettings),
+        ("blend_bwd_bg", m.usettings))}
     with torch.no_grad():
-        rows = [check_fwd("blend_fwd", fwd_args, None, launches["blend_fwd"])]
+        rows = [check_fwd("blend_fwd", fwd_args, {}, launches["blend_fwd"],
+                          layout["blend_fwd"])]
         for name in KERNELS[1:]:
-            a, bgt = rec.last[name]
+            a, kw = rec.last[name]
             check = check_bwd if "bwd" in name else check_fwd
-            rows.append(check(name, a, bgt, launches[name]))
+            rows.append(check(name, a, kw, launches[name], layout[name]))
     if extra:
         for row in rows:
             row["keyframe_path_launches"] = extra[row["name"]]

@@ -39,6 +39,7 @@ class Binning(NamedTuple):
     tile_offsets: torch.Tensor  # (T+1,) int64 aligned starts into point_list
     tile_counts: torch.Tensor  # (T,) int64 live entries of each tile
     block_tile: torch.Tensor   # (L/align,) int64 tile per block (-1 unused)
+    tile_order: torch.Tensor   # (T,) int64 tiles by live entries, most first
     num_entries: int           # valid entries kept
     demand: int                # aligned layout size L (entries + padding)
     num_blocks: int            # align-sized blocks, L / align
@@ -193,9 +194,13 @@ def bin_gaussians(pre: Preprocessed, width: int, height: int, tile_size: int,
     point_list = sorted_id[src]      # padding slots read sorted_id[0]
     entry_tile = torch.where(valid, t_of_o, num_tiles)
     block_tile = torch.where(valid[::align], entry_tile[::align], -1)
+    # the backward blend's launch order: its CTA walks a tile's entries
+    # serially, so the crowded tiles start first
+    tile_order = torch.argsort(kept_counts, descending=True, stable=True)
     return Binning(
         point_list=point_list, entry_tile=entry_tile, entry_valid=valid,
         tile_offsets=poffs, tile_counts=kept_counts, block_tile=block_tile,
+        tile_order=tile_order,
         num_entries=num_entries, demand=L, num_blocks=L // align,
         dropped=0, tile_dropped=tile_dropped, clipped=clipped,
     )

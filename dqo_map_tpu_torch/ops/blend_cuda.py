@@ -111,8 +111,8 @@ def _lib(name: str):
                                       F, F, F, P, P, P, P, P]
         fwd.dqo_blend_fwd.restype = I
         bwd = ctypes.CDLL(str(paths["blend_bwd"]))
-        bwd.dqo_blend_bwd.argtypes = [P, LL, P, P, I, I, P, F, F, F, F, F, F,
-                                      F, F, F, P, P, P, P, P, P]
+        bwd.dqo_blend_bwd.argtypes = [P, LL, P, P, P, I, I, P, F, F, F, F, F,
+                                      F, F, F, F, P, P, P, P, P, P]
         bwd.dqo_blend_bwd.restype = I
         for lib in (fwd, bwd):
             lib.dqo_cuda_error_string.argtypes = [I]
@@ -207,17 +207,34 @@ def blend_bwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
               tile_counts: torch.Tensor, num_tiles: int, tile_size: int,
               width: int, K: torch.Tensor, params: BlendParams, bg,
               color: torch.Tensor, aux: torch.Tensor, dcolor: torch.Tensor,
-              bgt: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K2, one CTA per tile: the cotangent `dcolor` (T, 256, 8) of
-    K1's colour block taken back to the (16, L) entry features, from K1's
-    saved `color` and `aux` blocks. Returns dfeats (16, L), 0 on padding
-    and on rows 13 and 14."""
+              bgt: Optional[torch.Tensor] = None,
+              tile_order: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K2, one CTA per tile, CTA i on tile `tile_order[i]` (the
+    binning's order, most entries first; tile i without it): the cotangent
+    `dcolor` (T, 256, 8) of K1's colour block taken back to the (16, L)
+    entry features, from K1's saved `color` and `aux` blocks. Returns
+    dfeats (16, L), 0 on padding and on rows 13 and 14."""
+    if tile_order is not None and (tile_order.dtype != torch.int64
+                                   or tile_order.shape != (num_tiles,)):
+        raise ValueError(f"tile_order must be int64 (num_tiles,) = "
+                         f"({num_tiles},), got {tile_order.dtype} "
+                         f"{tuple(tile_order.shape)}")
     _check_common("blend_bwd", feats, tile_offsets, tile_counts, num_tiles,
                   tile_size, bgt)
     dev = feats.device
     for what, x, ch in (("color", color, NC), ("aux", aux, NA),
                         ("dcolor", dcolor, NC)):
         _check_block(what, x, num_tiles, ch, dev)
+    for what, x in (("color", color), ("aux", aux), ("dcolor", dcolor),
+                    ("bgt", bgt)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{what} must start on 16 bytes: the kernel "
+                             "reads it as float4")
+    if tile_order is not None:
+        if tile_order.device != dev:
+            raise ValueError(f"tile_order must be on {dev}, got "
+                             f"{tile_order.device}")
+        tile_order = tile_order.contiguous()
     feats = feats.contiguous()
     tile_offsets = tile_offsets.to(dev).contiguous()
     tile_counts = tile_counts.to(dev).contiguous()
@@ -229,7 +246,8 @@ def blend_bwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
     lib = _lib("blend_bwd")
     rc = lib.dqo_blend_bwd(
         feats.data_ptr(), L, tile_offsets.data_ptr(), tile_counts.data_ptr(),
-        num_tiles, TW, scal.data_ptr(),
+        None if tile_order is None else tile_order.data_ptr(), num_tiles, TW,
+        scal.data_ptr(),
         params.opaque_threshold, params.depth_threshold,
         params.normal_threshold, params.T_threshold, ALPHA_MIN, ALPHA_MAX,
         bg[0], bg[1], bg[2], None if bgt is None else bgt.data_ptr(),
@@ -256,42 +274,46 @@ class BlendFunction(torch.autograd.Function):
     n_touched are constants."""
 
     @staticmethod
-    def forward(ctx, feats, tile_offsets, tile_counts, K, bgt, geom: Geometry):
+    def forward(ctx, feats, tile_offsets, tile_counts, tile_order, K, bgt,
+                geom: Geometry):
         args = (feats, tile_offsets, tile_counts, geom.num_tiles,
                 geom.tile_size, geom.width, K, geom.params, geom.bg)
         if feats.is_cuda:
             color, aux, nt = blend_fwd(*args, bgt=bgt)
         else:
             color, aux, nt = blend_blocks_ref(*args, bgt=bgt)
-        ctx.save_for_backward(feats, tile_offsets, tile_counts, K, bgt,
-                              color, aux)
+        ctx.save_for_backward(feats, tile_offsets, tile_counts, tile_order, K,
+                              bgt, color, aux)
         ctx.geom = geom
         ctx.mark_non_differentiable(aux, nt)
         return color, aux, nt
 
     @staticmethod
     def backward(ctx, dcolor, _daux, _dnt):
-        feats, tile_offsets, tile_counts, K, bgt, color, aux = ctx.saved_tensors
+        (feats, tile_offsets, tile_counts, tile_order, K, bgt, color,
+         aux) = ctx.saved_tensors
         g = ctx.geom
         args = (feats, tile_offsets, tile_counts, g.num_tiles, g.tile_size,
                 g.width, K, g.params, g.bg, color, aux, dcolor.contiguous())
         if feats.is_cuda:
-            dfeats = blend_bwd(*args, bgt=bgt)
+            dfeats = blend_bwd(*args, bgt=bgt, tile_order=tile_order)
         else:
             dfeats = blend_bwd_ref(*args, bgt=bgt)
-        return dfeats, None, None, None, None, None
+        return dfeats, None, None, None, None, None, None
 
 
 def blend_tiles(feats: torch.Tensor, tile_offsets: torch.Tensor,
                 tile_counts: torch.Tensor, num_tiles: int, tile_size: int,
                 width: int, height: int, K: torch.Tensor, params: BlendParams,
                 bg, bgt: Optional[torch.Tensor] = None,
-                tiled: bool = False) -> dict:
+                tiled: bool = False,
+                tile_order: Optional[torch.Tensor] = None) -> dict:
     """Blend every tile, differentiably in `feats`: the kernels for tensors
-    on the card, the plain versions for tensors on the CPU. Returns the
-    maps of `blend.unpack_blocks`, as images or, `tiled`, as tile rows."""
+    on the card, the plain versions for tensors on the CPU; `tile_order` is
+    K2's launch order (`blend_bwd`). Returns the maps of
+    `blend.unpack_blocks`, as images or, `tiled`, as tile rows."""
     geom = Geometry(num_tiles, tile_size, width, params,
                     tuple(float(x) for x in bg))
-    color, aux, nt = BlendFunction.apply(feats, tile_offsets, tile_counts, K,
-                                         bgt, geom)
+    color, aux, nt = BlendFunction.apply(feats, tile_offsets, tile_counts,
+                                         tile_order, K, bgt, geom)
     return unpack_blocks(color, aux, nt, tile_size, width, height, tiled)

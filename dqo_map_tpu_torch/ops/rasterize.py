@@ -186,7 +186,8 @@ def rasterize(means3d: torch.Tensor, scales: torch.Tensor, rots: torch.Tensor,
     TH, TW = binning_mod.tile_grid_size(W, H, settings.tile_size)
     out = blend_tiles(feats, b.tile_offsets, b.tile_counts, TH * TW,
                       settings.tile_size, W, H, cam["K"],
-                      blend_params(settings), settings.bg, bg_tiled, tiled)
+                      blend_params(settings), settings.bg, bg_tiled, tiled,
+                      tile_order=b.tile_order)
 
     # n_touched per gaussian: a segment sum over the entries
     P = means3d.shape[0]

@@ -17,11 +17,16 @@ The comparisons need a CUDA card (marker `cuda`) and skip without one.
   maps and n_touched exactly.
 - K2: each thread's terms are the plain version's, in its order, but the
   CTA sums an entry's terms over the tile's 256 pixels in another order (a
-  shuffle tree per warp, then the eight warp sums) than the plain version's
-  `torch.sum`. So the zero structure must match exactly, and each gradient
-  row to 1e-4 of that row's largest magnitude: 256 float32 terms summed in
-  two orders differ by at most about 256 x 6e-8 = 1.5e-5 of the largest
-  term.
+  warp's lanes over their pixels, then a reduce-scatter across the warp)
+  than the plain version's `torch.sum`. So the zero structure must match
+  exactly, and each gradient row to 1e-4 of that row's largest magnitude:
+  256 float32 terms summed in two orders differ by at most about 256 x
+  6e-8 = 1.5e-5 of the largest term. K2 runs one CTA per tile, which walks
+  the tile's entries in staged batches; the hand-made tiles below are
+  longer than the main path's scenes make them.
+
+K2's launch order, the binning's `tile_order`, is held against a numpy
+construction on the CPU.
 """
 
 import math
@@ -47,9 +52,11 @@ EXACT = ("depth_index_map", "color_index_map", "n_touched_entries")
 PARAMS = BlendParams(0.6, 1.0, 0.5, 1e-4)
 
 
-def scene_entries(device, P=3000, W=200, H=136, seed=5, masked=False):
-    """Binned, packed entries of a random scene of flat splats; with
-    `masked`, a random half of the tiles is masked off and left empty."""
+def scene_entries(device, P=3000, W=200, H=136, seed=5, masked=False,
+                  align=256, max_chunks=32):
+    """Binned, packed entries of a random scene of flat splats, in
+    `align`-sized blocks of at most `max_chunks` a tile; with `masked`, a
+    random half of the tiles is masked off and left empty."""
     rng = np.random.default_rng(seed)
     cam = Camera(uid=0, c2w=np.eye(4), fx=0.75 * W, fy=0.75 * W, cx=W / 2,
                  cy=H / 2, width=W, height=H)
@@ -67,7 +74,8 @@ def scene_entries(device, P=3000, W=200, H=136, seed=5, masked=False):
         tile_mask = torch.as_tensor(
             rng.uniform(size=binning.tile_grid_size(W, H, 16)) < 0.5,
             device=device)
-    b = binning.bin_gaussians(pre, W, H, 16, 16, tile_mask)
+    b = binning.bin_gaussians(pre, W, H, 16, 16, tile_mask, align=align,
+                              max_chunks=max_chunks)
     feats = pack_entries(pre, b, t(rng.uniform(0, 1, (P, 3))),
                          t(rng.uniform(0.2, 0.99, P)))
     return feats, b, cin["K"], W, H
@@ -122,6 +130,43 @@ def test_blend_bwd_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         blend_bwd(feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS,
                   (0.0, 0.0, 0.0), color, aux, torch.ones_like(color))
+
+
+@pytest.mark.parametrize("align", [128, 256])
+def test_bwd_tile_order_puts_crowded_tiles_first(align):
+    """K2's CTA i walks tile `tile_order[i]`: every tile once, by live
+    entries, most first, ties in tile order; so a tile at the per-tile cap
+    launches first and masked-off tiles, with no entries, last."""
+    max_chunks = 1 if align == 128 else 2
+    feats, b, K, W, H = scene_entries("cpu", P=6000, W=96, H=64, masked=True,
+                                      align=align, max_chunks=max_chunks)
+    counts = b.tile_counts.numpy()
+    order = b.tile_order.numpy()
+    assert order.dtype == np.int64
+    assert (order == sorted(range(len(counts)),
+                            key=lambda t: (-counts[t], t))).all()
+    capped = np.nonzero(counts == align * max_chunks)[0]
+    empty = np.nonzero(counts == 0)[0]
+    assert len(capped) and len(empty) and b.tile_dropped > 0
+    assert set(order[:len(capped)]) == set(capped)
+    assert set(order[len(order) - len(empty):]) == set(empty)
+
+
+@pytest.mark.parametrize("case", ["no tiles", "one tile more",
+                                  "one tile less", "int32", "2-D", "float"])
+def test_blend_bwd_refuses_a_tile_order_that_does_not_fit(case):
+    feats, b, K, W, H = scene_entries("cpu", P=200, W=48, H=32)
+    T = b.tile_offsets.shape[0] - 1
+    o = b.tile_order
+    bad = {"no tiles": o[:0], "one tile more": torch.cat([o, o[:1]]),
+           "one tile less": o[1:], "int32": o.int(), "2-D": o[None, :],
+           "float": o.float()}[case]
+    color, aux, _ = blend_blocks_ref(feats, b.tile_offsets, b.tile_counts, T,
+                                     16, W, K, PARAMS, (0.0, 0.0, 0.0))
+    with pytest.raises(ValueError, match="tile_order"):
+        blend_bwd(feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS,
+                  (0.0, 0.0, 0.0), color, aux, torch.ones_like(color),
+                  tile_order=bad)
 
 
 @pytest.fixture
@@ -184,34 +229,129 @@ def test_blend_bg_kernel_matches_plain_version(cuda_device, masked):
             np.testing.assert_allclose(a, r, atol=TOL[k], rtol=0, err_msg=k)
 
 
+def check_bwd_kernel(args, bgt, tile_order):
+    """K2 on the card against its plain version, its CTAs on the tiles in
+    `tile_order` (in tile order where None): one launch of the right
+    variant, the zero structure exactly, each gradient row to 1e-4 of its
+    largest magnitude. Returns both results and the plain version's
+    stats."""
+    name = "blend_bwd_bg" if bgt is not None else "blend_bwd"
+    launches = dict(LAUNCHES)
+    got = blend_bwd(*args, bgt=bgt, tile_order=tile_order)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == launches[name] + 1
+    assert sum(LAUNCHES.values()) == sum(launches.values()) + 1
+    stats = {}
+    ref = blend_bwd_ref(*args, bgt=bgt, stats=stats)
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    flip = (got != 0) != (ref != 0)
+    assert not flip.any(), int(flip.sum())
+    assert (got[[13, 14]] == 0).all()
+    for r in GRAD_ROWS:
+        np.testing.assert_allclose(got[r], ref[r],
+                                   atol=1e-4 * np.abs(ref[r]).max(), rtol=0,
+                                   err_msg=f"row {r}")
+    return got, ref, stats
+
+
+def random_cotangent(T, device, seed):
+    dcolor = torch.randn((T, 256, 8), generator=torch.Generator().manual_seed(seed))
+    dcolor[..., 7] = 0.0
+    return dcolor.to(device)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("align", [256, 128])
 @pytest.mark.parametrize("with_bg", [False, True])
-def test_blend_bwd_kernel_matches_plain_version(cuda_device, with_bg):
-    feats, b, K, W, H = scene_entries(cuda_device)
+def test_blend_bwd_kernel_matches_plain_version(cuda_device, with_bg, align):
+    """At the keyframe scan's layout (align 256) and the local scans' (128)."""
+    feats, b, K, W, H = scene_entries(cuda_device, align=align)
     T = b.tile_offsets.shape[0] - 1
     bg = (0.2, 0.3, 0.4)
     bgt = bg_operand(T, cuda_device) if with_bg else None
     color, aux, _ = blend_fwd(feats, b.tile_offsets, b.tile_counts, T, 16, W,
                               K, PARAMS, bg, bgt)
-    g = torch.Generator().manual_seed(11)
-    dcolor = torch.randn((T, 256, 8), generator=g).to(cuda_device)
-    dcolor[..., 7] = 0.0
     args = (feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS, bg,
-            color, aux, dcolor)
-    name = "blend_bwd_bg" if with_bg else "blend_bwd"
-    launches = LAUNCHES[name]
-    got = blend_bwd(*args, bgt=bgt)
-    torch.cuda.synchronize()
-    assert LAUNCHES[name] == launches + 1
-    ref = blend_bwd_ref(*args, bgt=bgt)
-    got, ref = got.cpu().numpy(), ref.cpu().numpy()
-    assert ((got != 0) == (ref != 0)).all(), int(((got != 0) != (ref != 0)).sum())
-    assert (got[[13, 14]] == 0).all() and (got[:, ~b.entry_valid.cpu().numpy()] == 0).all()
+            color, aux, random_cotangent(T, cuda_device, 11))
+    got, ref, _ = check_bwd_kernel(args, bgt, b.tile_order)
+    assert (got[:, ~b.entry_valid.cpu().numpy()] == 0).all()
     for r in GRAD_ROWS:
-        scale = np.abs(ref[r]).max()
-        assert scale > 0, r
-        np.testing.assert_allclose(got[r], ref[r], atol=1e-4 * scale, rtol=0,
-                                   err_msg=f"row {r}")
+        assert np.abs(ref[r]).max() > 0, r
+
+
+def hand_tiles(counts, align, device, seed, opacity, hit_at=None):
+    """Tiles side by side in one tile row, with `counts` live entries of
+    wide splats (G ~ 1 over the tile) of opacity in `opacity`, depth rising,
+    laid out in `align`-sized blocks as the binning lays them; with
+    `hit_at`, tile 0's entry there is an opaque small splat at the tile's
+    centre, the hit of the pixels around it. Returns the blend's first
+    seven arguments."""
+    r = np.random.default_rng(seed)
+    padded = [-(-c // align) * align for c in counts]
+    offs = np.concatenate([[0], np.cumsum(padded)]).astype(np.int64)
+    f = np.zeros((16, int(offs[-1])), np.float32)
+    for t, c in enumerate(counts):
+        e = slice(offs[t], offs[t] + c)
+        f[0, e] = 16 * t + r.uniform(4, 12, c)
+        f[1, e] = r.uniform(4, 12, c)
+        f[2, e] = f[4, e] = r.uniform(1e-4, 1e-3, c)
+        f[3, e] = r.uniform(-5e-5, 5e-5, c)
+        f[5, e] = r.uniform(*opacity, c)
+        f[6:9, e] = r.uniform(0, 1, (3, c))
+        f[9, e] = np.linspace(1.0, 3.0, c)
+        f[10:13, e] = (np.array([0.05, -0.05, -1.0]) / np.sqrt(1.005))[:, None]
+        f[13, e] = 0.3
+        f[14, e] = np.arange(c)
+        f[15, e] = f[12, e] * f[9, e]
+    if hit_at is not None:
+        f[0:6, hit_at] = (8.0, 8.0, 0.05, 0.0, 0.05, 0.95)
+    K = torch.tensor([[12.0, 0, 8.0 * len(counts)], [0, 12.0, 8.0],
+                      [0, 0, 1.0]])
+    to = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    args = (to(f), to(offs), to(np.array(counts, np.int64)), len(counts), 16,
+            16 * len(counts), K)
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long walk", "whole batches",
+                                  "surface at a batch boundary"])
+def test_blend_bwd_kernel_walks_long_tiles(cuda_device, case):
+    """Tiles longer than the main path's scenes make them, each walked by
+    one CTA in staged batches of entries: a tile of 1,500 low-alpha entries
+    whose pixels walk past entry 1,024, with a hit in a later batch than
+    the one where T fell below T_threshold; two tiles whose live counts
+    (512 and 256) are whole numbers of batches and of align blocks,
+    launched last tile first; with the background, a surface that every
+    pixel crosses at the first entry of a batch (entry 128)."""
+    bgt, order = None, None
+    if case == "long walk":
+        base = hand_tiles([1500], 256, cuda_device, 21, (0.006, 0.009),
+                          hit_at=1400)
+    elif case == "whole batches":
+        base = hand_tiles([512, 256], 256, cuda_device, 22, (0.02, 0.04))
+        order = torch.tensor([1, 0], device=cuda_device)
+    else:
+        base = hand_tiles([384], 128, cuda_device, 23, (0.006, 0.009))
+        depth = base[0][9].cpu().numpy()
+        g = torch.Generator().manual_seed(24)
+        bgt = torch.zeros((1, 256, 8))
+        bgt[..., 0:3] = torch.rand((1, 256, 3), generator=g)
+        bgt[..., 3] = float((depth[127] + depth[128]) / 2)
+        bgt[..., 4] = 0.3 + 0.7 * torch.rand((1, 256), generator=g)
+        bgt = bgt.to(cuda_device)
+    args = base + (PARAMS, (0.1, 0.2, 0.3))
+    color, aux, _ = blend_fwd(*args, bgt=bgt)
+    T = base[3]
+    got, ref, stats = check_bwd_kernel(
+        args + (color, aux, random_cotangent(T, cuda_device, 25)), bgt, order)
+    if case == "long walk":
+        # T falls below T_threshold past entry 1,024, before the hit
+        assert stats["pairs"] > 256 * 4 * 256
+        hit = aux[0, :, 0].cpu().numpy()
+        assert (hit == 1400).sum() > 0 and (got[[10, 11, 12, 15], 1400] != 0).all()
+    elif case == "surface at a batch boundary":
+        assert (got[6:9, 128:] != 0).any() and stats["pairs"] == 256 * 384
 
 
 @pytest.mark.cuda
@@ -219,7 +359,8 @@ def test_blend_bwd_kernel_routes_a_hit_past_the_T_cut(cuda_device):
     """One tile: nineteen wide entries of alpha ~0.5 take T below
     T_threshold before the opaque entry that is every pixel's hit; K2 must
     route the depth and normal cotangents to it there, as its plain
-    version does."""
+    version does, from a later batch of entries than the one where T
+    fell."""
     n = 20
     r = np.random.default_rng(6)
     f = np.zeros((16, n + 4), np.float32)
@@ -240,13 +381,10 @@ def test_blend_bwd_kernel_routes_a_hit_past_the_T_cut(cuda_device):
     args = (feats, offs, counts, 1, 16, 16, K, PARAMS, (0.1, 0.2, 0.3))
     color, aux, _ = blend_fwd(*args)
     assert (aux[0, :, 0] == n - 1).all() and (aux[0, :, 4] < 1e-3).all()
-    dcolor = torch.randn((1, 256, 8), generator=torch.Generator().manual_seed(3))
-    dcolor[..., 7] = 0.0
-    dcolor = dcolor.to(cuda_device)
-    got = blend_bwd(*args, color, aux, dcolor).cpu().numpy()
-    ref = blend_bwd_ref(*args, color, aux, dcolor).cpu().numpy()
+    got, _, stats = check_bwd_kernel(
+        args + (color, aux, random_cotangent(1, cuda_device, 3)), None, None)
+    # every pixel's T fell below T_threshold within entries 8..15, the
+    # kernel's second batch of 8; its hit, entry 19, is in the third
+    assert 8 * 256 < stats["pairs"] < 16 * 256
     assert (got[[10, 11, 12, 15], n - 1] != 0).all()
     assert (got[9:13, :n - 1] == 0).all()
-    for row in GRAD_ROWS:
-        np.testing.assert_allclose(got[row], ref[row],
-                                   atol=1e-4 * np.abs(ref[row]).max(), rtol=0)
