@@ -31,10 +31,11 @@ against their plain PyTorch versions.
    the zero structure equal but at a few places of float32 cancellation
    (see `check_bwd`). A kernel's `ms` is its own device time per launch
    (the profiler's, `device_ms`), `wrapper_ms` the CUDA-event time of a
-   whole wrapper call; for K2 also the time with its tiles launched in
-   tile order instead of the binning's `tile_order` (most entries first),
-   and the most crowded tile's alone. Each row carries the live entries
-   per non-empty tile of its call (`tile_entries`).
+   whole wrapper call; for each kernel also the time with its tiles
+   launched in tile order instead of the binning's `tile_order` (most
+   entries first), and the most crowded tile's alone. Each row carries the
+   live entries per non-empty tile of its call (`tile_entries`). Every
+   recorded call must have come with the binning's `tile_order`.
 4. Checks the output: finite maps, every frame tracked, the render close
    to the frame.
 
@@ -239,8 +240,8 @@ def start_profile():
 
 
 def report_profile(prof, infos):
-    """Device time by kernel over the profiled frames, and the device's
-    busy share of their wall time."""
+    """Device time by kernel over the profiled frames (the 15 largest and
+    the blend kernels), and the device's busy share of their wall time."""
     import os
     prof.__exit__(None, None, None)
     events = [e for e in prof.key_averages()
@@ -249,7 +250,9 @@ def report_profile(prof, infos):
     wall_us = 1e6 * sum(i["tracker_s"] + i["mapper_s"] for i in infos)
     print(f"profile of {len(infos)} frames: device busy {busy_us / 1e3:.1f} ms "
           f"of {wall_us / 1e3:.1f} ms wall ({100 * busy_us / wall_us:.1f}%)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the 15 largest, and the blend kernels wherever they rank
+    for e in ranked[:15] + [e for e in ranked[15:] if "blend_" in e.key]:
         print(f"  {e.self_device_time_total / 1e3 / len(infos):9.3f} ms/frame "
               f"{e.count / len(infos):7.1f} calls/frame  {e.key[:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
@@ -354,6 +357,28 @@ def kernel_row(name, launches, max_err, times, n_bytes, pairs, ops, tiles):
     }
 
 
+def order_times(name, fn, args, kw) -> dict:
+    """The launch order's worth, and the floor the most crowded tile sets:
+    the device time of `fn` (a kernel's wrapper, whose kernel's name holds
+    `fn.__name__`) with the tiles in tile order, and with the first tile of
+    the order alone (the others' counts 0, so their CTAs walk nothing)."""
+    import torch
+    if kw.get("tile_order") is None:
+        raise RuntimeError(f"{name}: the main path launched it without the "
+                           "binning's tile_order")
+    counts, first = args[2], kw["tile_order"][0]
+    tiles = torch.arange(len(counts), device=counts.device)
+    crowded = args[:2] + (torch.where(tiles == first, counts, 0),) + args[3:]
+    sym = fn.__name__
+    out = {"layout_order_ms": device_ms(
+               lambda: fn(*args, **dict(kw, tile_order=None)), sym, 20),
+           "crowded_tile_ms": device_ms(lambda: fn(*crowded, **kw), sym, 20)}
+    print(f"{name}: {out['layout_order_ms']:.4f} ms with the tiles in tile "
+          f"order; the most crowded tile alone {out['crowded_tile_ms']:.4f} "
+          "ms")
+    return out
+
+
 def check_fwd(name, args, kw, launches, layout) -> dict:
     """K1 (plain or background variant) against its plain version on
     recorded inputs: the index channels and n_touched exactly, the depth
@@ -362,6 +387,7 @@ def check_fwd(name, args, kw, launches, layout) -> dict:
     from dqo_map_tpu_torch.ops.blend import blend_blocks_ref
     from dqo_map_tpu_torch.ops.blend_cuda import blend_fwd
     bgt = kw.get("bgt")
+    order_ms = order_times(name, blend_fwd, args, kw)
     color, aux, nt = blend_fwd(*args, **kw)
     stats = {}
     rcolor, raux, rnt = blend_blocks_ref(*args, bgt=bgt, stats=stats)
@@ -393,9 +419,10 @@ def check_fwd(name, args, kw, launches, layout) -> dict:
                + (T * 256 * 5 * 4 if bgt is not None else 0))
     print(f"{name} vs plain version on {T} tiles, {n_live} live entries: "
           "index maps and n_touched equal")
-    return kernel_row(name, launches, max_err, times, n_bytes, stats["pairs"],
-                      OPS_FWD_BG if bgt is not None else OPS_FWD,
-                      tile_entries(args[2], *layout))
+    return dict(kernel_row(name, launches, max_err, times, n_bytes,
+                           stats["pairs"],
+                           OPS_FWD_BG if bgt is not None else OPS_FWD,
+                           tile_entries(args[2], *layout)), **order_ms)
 
 
 def check_bwd(name, args, kw, launches, layout) -> dict:
@@ -405,9 +432,7 @@ def check_bwd(name, args, kw, launches, layout) -> dict:
     from dqo_map_tpu_torch.ops.blend import GRAD_ROWS, blend_bwd_ref
     from dqo_map_tpu_torch.ops.blend_cuda import blend_bwd
     bgt = kw.get("bgt")
-    if kw.get("tile_order") is None:
-        raise RuntimeError(f"{name}: the main path launched K2 without the "
-                           "binning's tile_order")
+    order_ms = order_times(name, blend_bwd, args, kw)
     got = blend_bwd(*args, **kw)
     stats = {}
     ref = blend_bwd_ref(*args, bgt=bgt, stats=stats)
@@ -439,21 +464,6 @@ def check_bwd(name, args, kw, launches, layout) -> dict:
     times = (device_ms(lambda: blend_bwd(*args, **kw), "blend_bwd", 20),
              time_cuda(lambda: blend_bwd(*args, **kw), reps=20),
              time_cuda(lambda: blend_bwd_ref(*args, bgt=bgt), reps=2))
-    # the launch order's worth, and the floor the most crowded tile sets:
-    # the tiles in tile order, and the first tile of the order alone (the
-    # others' counts 0, so their CTAs leave at once)
-    counts, first = args[2], kw["tile_order"][0]
-    tiles = torch.arange(len(counts), device=counts.device)
-    crowded = args[:2] + (torch.where(tiles == first, counts, 0),) + args[3:]
-    order_ms = {
-        "layout_order_ms": device_ms(
-            lambda: blend_bwd(*args, **dict(kw, tile_order=None)),
-            "blend_bwd", 20),
-        "crowded_tile_ms": device_ms(lambda: blend_bwd(*crowded, **kw),
-                                     "blend_bwd", 20)}
-    print(f"{name}: {order_ms['layout_order_ms']:.4f} ms with the tiles in "
-          f"tile order; the most crowded tile alone "
-          f"{order_ms['crowded_tile_ms']:.4f} ms")
     T, n_live = args[3], int(args[2].sum())
     # per live entry: 16 feature rows in, 14 gradient rows out; per pixel
     # the cotangent's 7 channels, 3 of the colour block, 2 of the aux block
@@ -546,8 +556,8 @@ def main(argv=None) -> int:
         ("blend_fwd", s), ("blend_bwd", s), ("blend_fwd_bg", m.usettings),
         ("blend_bwd_bg", m.usettings))}
     with torch.no_grad():
-        rows = [check_fwd("blend_fwd", fwd_args, {}, launches["blend_fwd"],
-                          layout["blend_fwd"])]
+        rows = [check_fwd("blend_fwd", fwd_args, {"tile_order": b.tile_order},
+                          launches["blend_fwd"], layout["blend_fwd"])]
         for name in KERNELS[1:]:
             a, kw = rec.last[name]
             check = check_bwd if "bwd" in name else check_fwd

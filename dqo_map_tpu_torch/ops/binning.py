@@ -194,8 +194,8 @@ def bin_gaussians(pre: Preprocessed, width: int, height: int, tile_size: int,
     point_list = sorted_id[src]      # padding slots read sorted_id[0]
     entry_tile = torch.where(valid, t_of_o, num_tiles)
     block_tile = torch.where(valid[::align], entry_tile[::align], -1)
-    # the backward blend's launch order: its CTA walks a tile's entries
-    # serially, so the crowded tiles start first
+    # the launch order of both blends (K1 and K2): a CTA walks a tile's
+    # entries serially, so the crowded tiles start first
     tile_order = torch.argsort(kept_counts, descending=True, stable=True)
     return Binning(
         point_list=point_list, entry_tile=entry_tile, entry_valid=valid,

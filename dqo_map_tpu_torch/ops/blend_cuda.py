@@ -107,8 +107,8 @@ def _lib(name: str):
         paths = build_libraries()
         P, F, I, LL = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
         fwd = ctypes.CDLL(str(paths["blend_fwd"]))
-        fwd.dqo_blend_fwd.argtypes = [P, LL, P, P, I, I, P, F, F, F, F, F, F,
-                                      F, F, F, P, P, P, P, P]
+        fwd.dqo_blend_fwd.argtypes = [P, LL, P, P, P, I, I, P, F, F, F, F, F,
+                                      F, F, F, F, P, P, P, P, P]
         fwd.dqo_blend_fwd.restype = I
         bwd = ctypes.CDLL(str(paths["blend_bwd"]))
         bwd.dqo_blend_bwd.argtypes = [P, LL, P, P, P, I, I, P, F, F, F, F, F,
@@ -131,9 +131,6 @@ def pack_entries(pre, b, colors, opacities) -> torch.Tensor:
 
 def _check_common(name, feats, tile_offsets, tile_counts, num_tiles,
                   tile_size, bgt):
-    if not feats.is_cuda:
-        raise ValueError(f"{name} runs on the card; the plain version takes "
-                         "CPU tensors")
     if tile_size != 16:
         raise ValueError(f"the kernels blend 16x16 tiles, got {tile_size}")
     if feats.dtype != torch.float32 or feats.dim() != 2 or feats.shape[0] != NF:
@@ -145,6 +142,9 @@ def _check_common(name, feats, tile_offsets, tile_counts, num_tiles,
         raise ValueError("tile_counts must be int64 (num_tiles,)")
     if bgt is not None:
         _check_block("bgt", bgt, num_tiles, NB, feats.device)
+    if not feats.is_cuda:
+        raise ValueError(f"{name} runs on the card; the plain version takes "
+                         "CPU tensors")
 
 
 def _check_block(what, x, num_tiles, channels, device):
@@ -153,6 +153,24 @@ def _check_block(what, x, num_tiles, channels, device):
         raise ValueError(f"{what} must be a contiguous float32 "
                          f"({num_tiles}, 256, {channels}) tensor on {device}, "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what} must start on 16 bytes: the kernels read "
+                         "it as float4")
+
+
+def _check_order(tile_order, num_tiles, device):
+    """The launch order, CTA i on tile `tile_order[i]`: int64 (num_tiles,)
+    on `device`, or None for tile order."""
+    if tile_order is None:
+        return None
+    if tile_order.dtype != torch.int64 or tile_order.shape != (num_tiles,):
+        raise ValueError(f"tile_order must be int64 (num_tiles,) = "
+                         f"({num_tiles},), got {tile_order.dtype} "
+                         f"{tuple(tile_order.shape)}")
+    if tile_order.device != device:
+        raise ValueError(f"tile_order must be on {device}, got "
+                         f"{tile_order.device}")
+    return tile_order.contiguous()
 
 
 def _scal(K, dev):
@@ -169,15 +187,21 @@ def _raise_on(rc: int, lib, what: str):
 def blend_fwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
               tile_counts: torch.Tensor, num_tiles: int, tile_size: int,
               width: int, K: torch.Tensor, params: BlendParams, bg,
-              bgt: Optional[torch.Tensor] = None):
-    """Launch K1, one CTA per tile, each walking its tile's `tile_counts[t]`
-    live entries from `tile_offsets[t]` on; with `bgt` (num_tiles, 256, 8)
-    the variant with the one-surface background. Returns the per-tile
-    blocks color (T, 256, 8), aux (T, 256, 8) and n_touched per entry (L,)
-    int32; a tile with no entries gets the init values."""
+              bgt: Optional[torch.Tensor] = None,
+              tile_order: Optional[torch.Tensor] = None):
+    """Launch K1, one CTA per tile, CTA i on tile `tile_order[i]` (the
+    binning's order, most entries first, so the crowded tiles start first
+    and the empty ones last; tile i without it), each walking its tile's
+    `tile_counts[t]` live entries from `tile_offsets[t]` on, in staged
+    batches, a warp of pixels leaving once all its pixels are done; with
+    `bgt` (num_tiles, 256, 8) the variant with the one-surface background.
+    Returns the per-tile blocks color (T, 256, 8) and aux (T, 256, 8),
+    each CTA writing its tile's rows as whole lines, and n_touched per
+    entry (L,) int32; a tile with no entries gets the init values."""
+    dev = feats.device
+    tile_order = _check_order(tile_order, num_tiles, dev)
     _check_common("blend_fwd", feats, tile_offsets, tile_counts, num_tiles,
                   tile_size, bgt)
-    dev = feats.device
     feats = feats.contiguous()
     tile_offsets = tile_offsets.to(dev).contiguous()
     tile_counts = tile_counts.to(dev).contiguous()
@@ -192,7 +216,8 @@ def blend_fwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
     lib = _lib("blend_fwd")
     rc = lib.dqo_blend_fwd(
         feats.data_ptr(), L, tile_offsets.data_ptr(), tile_counts.data_ptr(),
-        num_tiles, TW, scal.data_ptr(),
+        None if tile_order is None else tile_order.data_ptr(), num_tiles, TW,
+        scal.data_ptr(),
         params.opaque_threshold, params.depth_threshold,
         params.normal_threshold, params.T_threshold, ALPHA_MIN, ALPHA_MAX,
         bg[0], bg[1], bg[2], None if bgt is None else bgt.data_ptr(),
@@ -214,27 +239,13 @@ def blend_bwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
     `dcolor` (T, 256, 8) of K1's colour block taken back to the (16, L)
     entry features, from K1's saved `color` and `aux` blocks. Returns
     dfeats (16, L), 0 on padding and on rows 13 and 14."""
-    if tile_order is not None and (tile_order.dtype != torch.int64
-                                   or tile_order.shape != (num_tiles,)):
-        raise ValueError(f"tile_order must be int64 (num_tiles,) = "
-                         f"({num_tiles},), got {tile_order.dtype} "
-                         f"{tuple(tile_order.shape)}")
+    dev = feats.device
+    tile_order = _check_order(tile_order, num_tiles, dev)
     _check_common("blend_bwd", feats, tile_offsets, tile_counts, num_tiles,
                   tile_size, bgt)
-    dev = feats.device
     for what, x, ch in (("color", color, NC), ("aux", aux, NA),
                         ("dcolor", dcolor, NC)):
         _check_block(what, x, num_tiles, ch, dev)
-    for what, x in (("color", color), ("aux", aux), ("dcolor", dcolor),
-                    ("bgt", bgt)):
-        if x is not None and x.data_ptr() % 16:
-            raise ValueError(f"{what} must start on 16 bytes: the kernel "
-                             "reads it as float4")
-    if tile_order is not None:
-        if tile_order.device != dev:
-            raise ValueError(f"tile_order must be on {dev}, got "
-                             f"{tile_order.device}")
-        tile_order = tile_order.contiguous()
     feats = feats.contiguous()
     tile_offsets = tile_offsets.to(dev).contiguous()
     tile_counts = tile_counts.to(dev).contiguous()
@@ -279,7 +290,7 @@ class BlendFunction(torch.autograd.Function):
         args = (feats, tile_offsets, tile_counts, geom.num_tiles,
                 geom.tile_size, geom.width, K, geom.params, geom.bg)
         if feats.is_cuda:
-            color, aux, nt = blend_fwd(*args, bgt=bgt)
+            color, aux, nt = blend_fwd(*args, bgt=bgt, tile_order=tile_order)
         else:
             color, aux, nt = blend_blocks_ref(*args, bgt=bgt)
         ctx.save_for_backward(feats, tile_offsets, tile_counts, tile_order, K,
@@ -310,7 +321,7 @@ def blend_tiles(feats: torch.Tensor, tile_offsets: torch.Tensor,
                 tile_order: Optional[torch.Tensor] = None) -> dict:
     """Blend every tile, differentiably in `feats`: the kernels for tensors
     on the card, the plain versions for tensors on the CPU; `tile_order` is
-    K2's launch order (`blend_bwd`). Returns the maps of
+    both kernels' launch order (`blend_fwd`, `blend_bwd`). Returns the maps of
     `blend.unpack_blocks`, as images or, `tiled`, as tile rows."""
     geom = Geometry(num_tiles, tile_size, width, params,
                     tuple(float(x) for x in bg))

@@ -14,7 +14,11 @@ The comparisons need a CUDA card (marker `cuda`) and skip without one.
 - K1: the plain version repeats the kernel's float operations in its order
   (the library is built without FMA contraction), so colour, T and weights
   agree to 1e-5, depth to 1e-4 (the JAX package's tolerances) and the index
-  maps and n_touched exactly.
+  maps and n_touched exactly. K1 runs one CTA per tile, in the binning's
+  `tile_order`, walking the tile's entries in staged batches, each warp of
+  pixels leaving once its pixels are all done and the CTA once all are; a
+  tile's result does not depend on the order or on the other tiles, so
+  K1 under another order, or with one tile live, gives the same bits.
 - K2: each thread's terms are the plain version's, in its order, but the
   CTA sums an entry's terms over the tile's 256 pixels in another order (a
   warp's lanes over their pixels, then a reduce-scatter across the warp)
@@ -25,8 +29,9 @@ The comparisons need a CUDA card (marker `cuda`) and skip without one.
   the tile's entries in staged batches; the hand-made tiles below are
   longer than the main path's scenes make them.
 
-K2's launch order, the binning's `tile_order`, is held against a numpy
-construction on the CPU.
+The two kernels' launch order, the binning's `tile_order`, is held
+against a numpy construction on the CPU, and so are the wrappers' checks
+of their arguments.
 """
 
 import math
@@ -167,6 +172,46 @@ def test_blend_bwd_refuses_a_tile_order_that_does_not_fit(case):
         blend_bwd(feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS,
                   (0.0, 0.0, 0.0), color, aux, torch.ones_like(color),
                   tile_order=bad)
+
+
+@pytest.mark.parametrize("case", ["no tiles", "one tile more",
+                                  "one tile less", "int32", "2-D", "float"])
+def test_blend_fwd_refuses_a_tile_order_that_does_not_fit(case):
+    feats, b, K, W, H = scene_entries("cpu", P=200, W=48, H=32)
+    T = b.tile_offsets.shape[0] - 1
+    o = b.tile_order
+    bad = {"no tiles": o[:0], "one tile more": torch.cat([o, o[:1]]),
+           "one tile less": o[1:], "int32": o.int(), "2-D": o[None, :],
+           "float": o.float()}[case]
+    with pytest.raises(ValueError, match="tile_order"):
+        blend_fwd(feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS,
+                  (0.0, 0.0, 0.0), tile_order=bad)
+
+
+@pytest.mark.parametrize("kernel", ["blend_fwd", "blend_bwd"])
+def test_blend_kernels_refuse_a_tile_order_on_another_device(kernel):
+    feats, b, K, W, H = scene_entries("cpu", P=200, W=48, H=32)
+    T = b.tile_offsets.shape[0] - 1
+    elsewhere = torch.empty(T, dtype=torch.int64, device="meta")
+    args = (feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS,
+            (0.0, 0.0, 0.0))
+    if kernel == "blend_bwd":
+        color, aux, _ = blend_blocks_ref(*args)
+        args = args + (color, aux, torch.ones_like(color))
+    fn = blend_fwd if kernel == "blend_fwd" else blend_bwd
+    with pytest.raises(ValueError, match="tile_order must be on cpu"):
+        fn(*args, tile_order=elsewhere)
+
+
+def test_blend_fwd_refuses_a_background_off_16_bytes():
+    """K1 reads each pixel's background channels as a float4."""
+    feats, b, K, W, H = scene_entries("cpu", P=200, W=48, H=32)
+    T = b.tile_offsets.shape[0] - 1
+    bgt = torch.zeros(T * 256 * 8 + 1)[1:].view(T, 256, 8)
+    assert bgt.is_contiguous() and bgt.data_ptr() % 16
+    with pytest.raises(ValueError, match="bgt must start on 16 bytes"):
+        blend_fwd(feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS,
+                  (0.0, 0.0, 0.0), bgt)
 
 
 @pytest.fixture
@@ -388,3 +433,153 @@ def test_blend_bwd_kernel_routes_a_hit_past_the_T_cut(cuda_device):
     assert 8 * 256 < stats["pairs"] < 16 * 256
     assert (got[[10, 11, 12, 15], n - 1] != 0).all()
     assert (got[9:13, :n - 1] == 0).all()
+
+
+def check_fwd_kernel(args, bgt, tile_order):
+    """K1 on the card against its plain version, CTA i on tile
+    `tile_order[i]` (tile i where None): one launch of the right variant;
+    the index maps and n_touched exactly, colour, normal, T and weights to
+    1e-5, depth to 1e-4. Returns the kernel's blocks and the plain
+    version's stats."""
+    name = "blend_fwd_bg" if bgt is not None else "blend_fwd"
+    launches = dict(LAUNCHES)
+    got = blend_fwd(*args, bgt=bgt, tile_order=tile_order)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == launches[name] + 1
+    assert sum(LAUNCHES.values()) == sum(launches.values()) + 1
+    stats = {}
+    ref = blend_blocks_ref(*args, bgt=bgt, stats=stats)
+    (color, aux, nt), (rcolor, raux, rnt) = (
+        [x.cpu().numpy() for x in got], [x.cpu().numpy() for x in ref])
+    assert (aux[..., 0:2] == raux[..., 0:2]).all()
+    assert (nt == rnt).all(), int((nt != rnt).sum())
+    for what, a, r, tol in (
+            ("colour and normal", color[..., [0, 1, 2, 4, 5, 6, 7]],
+             rcolor[..., [0, 1, 2, 4, 5, 6, 7]], 1e-5),
+            ("weights and T", aux[..., 2:7], raux[..., 2:7], 1e-5),
+            ("depth", np.stack([color[..., 3], aux[..., 7]]),
+             np.stack([rcolor[..., 3], raux[..., 7]]), 1e-4)):
+        np.testing.assert_allclose(a, r, atol=tol, rtol=0, err_msg=what)
+    return got, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bg", [False, True])
+def test_blend_fwd_kernel_gives_the_same_bits_in_any_launch_order(
+        cuda_device, with_bg):
+    """The binning's order, a random permutation and tile order give the
+    same blocks bit for bit; masked-off tiles, with no entries, among
+    them."""
+    feats, b, K, W, H = scene_entries(cuda_device, masked=True, align=128)
+    T = b.tile_offsets.shape[0] - 1
+    bgt = bg_operand(T, cuda_device) if with_bg else None
+    args = (feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS,
+            (0.2, 0.3, 0.4))
+    want, _ = check_fwd_kernel(args, bgt, b.tile_order)
+    assert int((b.tile_counts == 0).sum()) > 0
+    shuffled = torch.randperm(T, generator=torch.Generator().manual_seed(8))
+    for order in (shuffled.to(cuda_device), None):
+        got = blend_fwd(*args, bgt=bgt, tile_order=order)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long walk", "whole batches",
+                                  "surface at a batch boundary"])
+def test_blend_fwd_kernel_walks_long_tiles(cuda_device, case):
+    """Tiles longer than the main path's scenes make them, at align 128: a
+    tile of 1,500 low-alpha entries whose pixels walk past entry 1,024 to
+    a hit at entry 1,400; three tiles whose live counts (512, 256, 64) are
+    whole numbers of K1's batches of 32, launched last tile first; with the
+    background, a surface that every pixel crosses at the first entry of a
+    batch (entry 128)."""
+    bgt, order = None, None
+    if case == "long walk":
+        base = hand_tiles([1500], 128, cuda_device, 31, (0.006, 0.009),
+                          hit_at=1400)
+    elif case == "whole batches":
+        base = hand_tiles([512, 256, 64], 128, cuda_device, 32, (0.02, 0.04))
+        order = torch.tensor([2, 1, 0], device=cuda_device)
+    else:
+        base = hand_tiles([384], 128, cuda_device, 33, (0.006, 0.009))
+        depth = base[0][9].cpu().numpy()
+        g = torch.Generator().manual_seed(34)
+        bgt = torch.zeros((1, 256, 8))
+        bgt[..., 0:3] = torch.rand((1, 256, 3), generator=g)
+        bgt[..., 3] = float((depth[127] + depth[128]) / 2)
+        bgt[..., 4] = 0.3 + 0.7 * torch.rand((1, 256), generator=g)
+        bgt = bgt.to(cuda_device)
+    args = base + (PARAMS, (0.1, 0.2, 0.3))
+    (color, aux, nt), stats = check_fwd_kernel(args, bgt, order)
+    if case == "long walk":
+        assert stats["pairs"] > 256 * 1024
+        assert (aux[0, :, 0] == 1400).sum() > 0
+    elif case == "whole batches":
+        assert (nt[:512] > 0).any() and (nt[512:768] > 0).any()
+        assert (nt[768:768 + 64] > 0).any()
+    else:
+        # the surface lands at entry 128 on every pixel
+        assert stats["pairs"] == 256 * 384
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bg", [False, True])
+def test_blend_fwd_crowded_tile_alone_gives_its_rows(cuda_device, with_bg):
+    """The first tile of `tile_order` with the others' counts 0 (how
+    chip_smoke.py times the crowded tile alone) gives that tile's rows and
+    n_touched of the full call bit for bit, and the other tiles the init
+    values."""
+    feats, b, K, W, H = scene_entries(cuda_device, align=128)
+    T = b.tile_offsets.shape[0] - 1
+    bgt = bg_operand(T, cuda_device) if with_bg else None
+    args = (feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS,
+            (0.2, 0.3, 0.4))
+    color, aux, nt = blend_fwd(*args, bgt=bgt, tile_order=b.tile_order)
+    first = int(b.tile_order[0])
+    assert int(b.tile_counts[first]) == int(b.tile_counts.max())
+    tiles = torch.arange(T, device=cuda_device)
+    counts = torch.where(tiles == first, b.tile_counts, 0)
+    alone = args[:2] + (counts,) + args[3:]
+    (c1, a1, n1), _ = check_fwd_kernel(alone, bgt, b.tile_order)
+    assert torch.equal(c1[first], color[first])
+    assert torch.equal(a1[first], aux[first])
+    beg = int(b.tile_offsets[first])
+    live = slice(beg, beg + int(b.tile_counts[first]))
+    assert torch.equal(n1[live], nt[live]) and int(n1[live].sum()) > 0
+    assert int(n1.sum()) == int(n1[live].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bg", [False, True])
+def test_blend_fwd_kernel_leaves_saturated_pixels(cuda_device, with_bg):
+    """Two tiles of 160 entries (ten batches): in tile 0 near-opaque wide
+    splats saturate every pixel within a few entries, so the whole CTA
+    leaves after its first batch; in tile 1 twelve opaque walls cover only
+    its left eight columns, whose warps leave early while the right half,
+    which never finds a hit, walks on to the end."""
+    base = list(hand_tiles([160, 160], 128, cuda_device, 41, (0.006, 0.009)))
+    f = base[0].cpu().numpy()
+    r = np.random.default_rng(42)
+    f[5, 0:160] = r.uniform(0.9, 0.99, 160)
+    walls = slice(256, 256 + 12)
+    f[0, walls], f[1, walls] = 16.0, 8.0
+    f[2, walls], f[3, walls], f[4, walls] = 0.018, 0.0, 1e-6
+    f[5, walls] = 0.99
+    base[0] = torch.as_tensor(f, device=cuda_device)
+    bgt = None
+    if with_bg:
+        g = torch.Generator().manual_seed(43)
+        bgt = torch.zeros((2, 256, 8))
+        bgt[..., 0:3] = torch.rand((2, 256, 3), generator=g)
+        bgt[..., 3] = float((f[9, 2] + f[9, 3]) / 2)
+        bgt[..., 4] = 0.5
+        bgt = bgt.to(cuda_device)
+    args = tuple(base) + (PARAMS, (0.1, 0.2, 0.3))
+    (color, aux, nt), stats = check_fwd_kernel(args, bgt, None)
+    left = torch.arange(256, device=cuda_device) % 16 < 8
+    hit = aux[..., 0]
+    assert (hit[0] >= 0).all() and (aux[0, :, 6] < PARAMS.T_threshold).all()
+    assert (hit[1][left] >= 0).all() and (hit[1][~left] == -1).all()
+    assert (aux[1, left, 6] < PARAMS.T_threshold).all()
+    assert stats["pairs"] < 0.35 * 256 * 320
