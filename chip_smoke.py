@@ -8,24 +8,37 @@ against their plain PyTorch versions.
 1. Builds the two blend kernels, K1 forward (`dqo_map_tpu_torch/csrc/
    blend_fwd.cu`) and K2 backward (`csrc/blend_bwd.cu`), with nvcc for
    sm_90a, one nvcc per source, both started together.
-2. Runs the port's main path, `SLAMSystem.step`, over synthetic RGB-D
+2. Runs the port's main path, `SLAMSystem.run()`, over synthetic RGB-D
    frames at the benchmark's Replica office0 scale: 1200x680, 40,800
    samples a frame, map capacity 2^19, ICP tracking on every frame, and
    bench.py's 50 masked Adam steps on every 6th frame: the local scan
    (unstable Gaussians in front of the stable background) or, on a
-   keyframe, the keyframe scan. Where the frames give no keyframe, a
+   keyframe, the keyframe scan; an evaluation at the first and the last
+   frame; then the final whole-history pass (`final_global_iter` steps per
+   keyframe over every keyframe, whole, with SSIM), the final evaluation,
+   and the trajectory, PLY map and `performance.json` under
+   `chiprun_out/run/`. The per-frame records come from a wrapper of
+   `system.step`, the final pass's from a wrapper of
+   `Mapping.global_optimization`. Where the frames give no keyframe, a
    second path runs the keyframe scan on the final map, as the next
    keyframe would; its launches are reported apart from the main path's.
    Each path zeroes the kernels' launch counters just before and reads
-   them just after: K1 (both variants) must have launched
-   once per model render, scan iteration, stable-background render and
-   keyframe range render, K2 (both variants) once per scan iteration, and
-   each scan's objective must have fallen over its second half.
+   them just after: K1 (both variants) must have launched once per model
+   render (the evaluation renders included), scan iteration,
+   stable-background render and keyframe range render, K2 (both variants)
+   once per scan iteration; each per-frame scan's objective must have
+   fallen over its second half, the final pass must have run
+   len(keyframes) x final_global_iter iterations, and its objective summed
+   over every keyframe must have fallen from before the pass to after it
+   (both sums under no_grad, their own K1 launches taken out of the
+   counts).
 3. Holds each kernel against its plain version at the main path's shapes
    and times both: K1 on the final map at the last camera, K1's
    background variant and K2's background variant on the last local
    scan's last iteration, K2's plain variant on the last keyframe scan's
-   last iteration. K1: index maps and n_touched exactly, float maps to
+   last iteration, and K1 and K2 on the final pass's last iteration
+   (`blend_fwd_final`, `blend_bwd_final`: every tile live, SSIM's dense
+   colour cotangent). K1: index maps and n_touched exactly, float maps to
    1e-5 (depth 1e-4). K2: each gradient row to 1e-4 of its largest
    magnitude (the CTA sums over the tile's pixels in another order), and
    the zero structure equal but at a few places of float32 cancellation
@@ -37,21 +50,34 @@ against their plain PyTorch versions.
    live entries per non-empty tile of its call (`tile_entries`). Every
    recorded call must have come with the binning's `tile_order`.
 4. Checks the output: finite maps, every frame tracked, the render close
-   to the frame.
+   to the frame, PSNR, depth-L1 and ATE before and after the final pass,
+   and the files `run()` wrote.
+5. Reloads the saved `_merge.ply` and renders it at the last camera
+   against the saved state (colour to 1e-5, depth to 1e-4); saves a
+   checkpoint and resumes it into a fresh system (map, keyframes, poses
+   and time equal, the render at the last camera bit-equal); runs the
+   `run_slam` CLI on a 6-frame Synthetic config at 160x120 as a
+   subprocess, which must exit 0 and write `result.json` with the
+   reference CLI's keys.
 
 With `--profile N` the last N frames of step 2 run under `torch.profiler`:
 it prints the device time by kernel and the device's busy share of that
-window, and writes the trace to `chiprun_out/slice_trace.json`.
+window, and writes the trace to `chiprun_out/slice_trace.json`; so do
+five iterations of the final pass (its 2nd to 6th), to
+`chiprun_out/final_pass_trace.json`.
 
 Prints the card, per-frame times (optimize frames apart), map and entry
-counts, PSNR, depth-L1 and ATE at the last frame, then one JSON line of
-kernel numbers and, last, the JSON result line. Exits non-zero, before
-printing a result, without a CUDA card or when any check fails.
+counts, PSNR, depth-L1 and ATE at the last frame, the final pass's
+counts, times and quality, then one JSON line of kernel numbers and,
+last, the JSON result line. Exits non-zero, before printing a result,
+without a CUDA card or when any check fails.
 """
 
 import argparse
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -64,6 +90,7 @@ OPS_FWD_BG = 36
 OPS_BWD = 62
 WARMUP_FRAMES = 3
 ADAM_STEPS = 50               # bench.py:111's gaussian_update_iter
+PROFILED_ITERS = 5            # final-pass iterations under --profile
 # K2 against its plain version: the places where exactly one of the two
 # is 0 (a sum of +-c cancelling exactly in one order and to a rounding
 # residue in the other) may number at most MAX_FLIPS, each off by at most
@@ -71,12 +98,22 @@ ADAM_STEPS = 50               # bench.py:111's gaussian_update_iter
 MAX_FLIPS = 32
 FLIP_TOL = 1e-6
 KERNELS = ("blend_fwd", "blend_fwd_bg", "blend_bwd", "blend_bwd_bg")
+FINAL_ROWS = ("blend_fwd_final", "blend_bwd_final")
 REPLACES = {
     "blend_fwd": "dqo_map_tpu/ops/blend_pallas.py:179",
     "blend_fwd_bg": "dqo_map_tpu/ops/blend_pallas.py:220",
     "blend_bwd": "dqo_map_tpu/ops/blend_pallas.py:366",
     "blend_bwd_bg": "dqo_map_tpu/ops/blend_pallas.py:366",
+    "blend_fwd_final": "dqo_map_tpu/ops/blend_pallas.py:179",
+    "blend_bwd_final": "dqo_map_tpu/ops/blend_pallas.py:366",
 }
+RUN_DIR = os.path.join("chiprun_out", "run")
+CLI_DIR = os.path.join("chiprun_out", "cli")
+# the keys of the reference CLI's result.json (`dqo_map_tpu/cli/run_slam.py`
+# over `SLAMSystem.run`, without the object layer)
+RESULT_KEYS = {"psnr", "ssim", "ms_ssim", "color_l1", "depth_l1_cm",
+               "valid_ratio", "lpips", "lpips_note", "ate_cm", "fps",
+               "max_mem_GB", "mean_tracking_s", "mean_mapping_s"}
 
 
 def card_line() -> str:
@@ -86,12 +123,13 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def slice_config():
+def slice_config(save_path: str = RUN_DIR):
     from dqo_map_tpu_torch.config import default_config
     # bench.py's workload, with the feature backend and object layer (not
     # ported) off
     return default_config(
-        type="Synthetic", use_object=False, use_gt_pose=False,
+        type="Synthetic", save_path=save_path, use_object=False,
+        use_gt_pose=False,
         icp_use_model_depth=False, use_orb_backend=False,
         capacity=1 << 19, add_capacity=16384,
         uniform_sample_num=40800, gaussian_update_frame=6,
@@ -102,23 +140,30 @@ def slice_config():
 
 class Recorder:
     """Keeps the arguments of each kernel variant's last launch, to hold
-    the kernels against their plain versions at the main path's shapes."""
+    the kernels against their plain versions at the main path's shapes;
+    the launches of the final pass under the `_final` names (`phase`), and
+    none while `phase` is None."""
 
     def __init__(self):
         from dqo_map_tpu_torch.ops import blend_cuda
         self.mod = blend_cuda
         self.fwd, self.bwd = blend_cuda.blend_fwd, blend_cuda.blend_bwd
         self.last = {}
+        self.phase = ""
+
+    def _keep(self, name, a, kw):
+        if self.phase is not None:
+            self.last[name + self.phase] = (a, kw)
 
     def __enter__(self):
         def fwd(*a, **kw):
             bg = kw.get("bgt") is not None
-            self.last["blend_fwd_bg" if bg else "blend_fwd"] = (a, kw)
+            self._keep("blend_fwd_bg" if bg else "blend_fwd", a, kw)
             return self.fwd(*a, **kw)
 
         def bwd(*a, **kw):
             bg = kw.get("bgt") is not None
-            self.last["blend_bwd_bg" if bg else "blend_bwd"] = (a, kw)
+            self._keep("blend_bwd_bg" if bg else "blend_bwd", a, kw)
             return self.bwd(*a, **kw)
 
         self.mod.blend_fwd, self.mod.blend_bwd = fwd, bwd
@@ -147,9 +192,9 @@ def check_launches(what: str, got: dict, scans0: dict, scans1: dict,
     fwd = got["blend_fwd"] + got["blend_fwd_bg"]
     bwd = got["blend_bwd"] + got["blend_bwd_bg"]
     print(f"{what}: launches {got}; model renders {renders}, scans "
-          f"local {d['local']} keyframe {d['global']}, iterations "
-          f"{d['iters']}, background renders {d['bg_renders']}, range "
-          f"renders {d['range_renders']}")
+          f"local {d['local']} keyframe {d['global']} final {d['final']}, "
+          f"iterations {d['iters']}, background renders {d['bg_renders']}, "
+          f"range renders {d['range_renders']}")
     if fwd != want_fwd or bwd != d["iters"]:
         raise RuntimeError(f"{what}: K1 launched {fwd} times for {want_fwd} "
                            f"blends, K2 {bwd} times for {d['iters']} "
@@ -157,9 +202,12 @@ def check_launches(what: str, got: dict, scans0: dict, scans1: dict,
 
 
 def check_scans_fall(mapping, start: int):
-    """Each scan's objective at its last iteration below that at iteration
-    iters//2 + 1, where the schedule pins the newest frame."""
+    """Each per-frame scan's objective at its last iteration below that at
+    iteration iters//2 + 1, where the schedule pins the newest frame (the
+    final pass pins none: `FinalPass` checks it)."""
     for kind, curve in mapping.scan_log[start:]:
+        if kind == "final":
+            continue
         c = curve.tolist()
         mid = len(c) // 2 + 1
         if mid < len(c) - 1 and not c[-1] < c[mid]:
@@ -170,9 +218,158 @@ def check_scans_fall(mapping, start: int):
               f"(iteration {mid}) -> {c[-1]:.5f}")
 
 
+def pass_objective(m, state, masks, init_stat) -> float:
+    """The final pass's objective at `state`, summed over every keyframe:
+    its loss (colour and SSIM terms, no depth term, and the attach term
+    against `init_stat`) of the stable render in each keyframe's render
+    mask `masks[i]`."""
+    import torch
+    from dqo_map_tpu_torch.models import gaussian_map as gm
+    from dqo_map_tpu_torch.slam.mapper import OPT_FIELDS, compute_loss
+    from dqo_map_tpu_torch.slam.renderer import render_state
+    B = state.count
+    params = {k: getattr(state, k)[:B] for k in OPT_FIELDS}
+    opt_mask = state.status[:B] == gm.STABLE
+    weights = dict(m._weights_t(depth=0.0))
+    total = 0.0
+    with torch.no_grad():
+        for (_, cam, keymap), rm in zip(m.keyframes, masks):
+            out = render_state(state, cam, m.settings, "stable")
+            loss, _ = compute_loss(
+                out, {"color_map": keymap["color"], "depth_map": keymap["depth"],
+                      "normal_map": keymap["normal"], "render_mask": rm},
+                params, init_stat, opt_mask, weights, m.args.add_depth_thres,
+                True)
+            total += float(loss)
+    return total
+
+
+class FinalPass:
+    """Wraps `Mapping.global_optimization`. On the final pass it records
+    the pass objective summed over every keyframe before and after the
+    pass (`pass_objective`; their K1 launches taken back out of the
+    counts), the ATE before it, its wall time, the scan counts and kernel
+    launches it made; the recorder keeps its kernel calls under the
+    `_final` names."""
+
+    def __init__(self, system, rec, profile: bool):
+        self.system, self.rec, self.profile = system, rec, profile
+        self.m = system.mapping
+        self.inner = self.m.global_optimization
+        self.info = None
+
+    def _uncounted(self, fn):
+        """`fn()`, its kernel launches neither counted nor recorded; their
+        number is kept in `info["uncounted_launches"]`."""
+        from dqo_map_tpu_torch.ops.blend_cuda import LAUNCHES
+        saved, phase = dict(LAUNCHES), self.rec.phase
+        self.rec.phase = None
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            self.rec.phase = phase
+            self.info["uncounted_launches"] += sum(
+                LAUNCHES[k] - saved[k] for k in LAUNCHES)
+            self.info["uncounted_s"] += time.perf_counter() - t0
+            LAUNCHES.update(saved)
+
+    def _profiled(self, run):
+        """`run()` (the pass) with its iterations 2 .. PROFILED_ITERS + 1
+        under `torch.profiler`, window edges at the Adam updates: the
+        profiler keeps `info["profile"]` = (profile, wall seconds,
+        iterations). A longer window, beside the frames' one, left the
+        later kernel timings of the process without records."""
+        import torch
+        from dqo_map_tpu_torch.slam import mapper as mapper_mod
+        inner_adam, done, window = mapper_mod.adam_update, [0], {}
+
+        def adam(*a, **kw):
+            out = inner_adam(*a, **kw)
+            done[0] += 1
+            if done[0] in (1, 1 + PROFILED_ITERS):
+                torch.cuda.synchronize()
+                if done[0] == 1:
+                    window["prof"] = start_profile()
+                    window["t0"] = time.perf_counter()
+                else:
+                    window["prof"].__exit__(None, None, None)
+                    self.info["profile"] = (
+                        window["prof"], time.perf_counter() - window["t0"],
+                        PROFILED_ITERS)
+            return out
+
+        mapper_mod.adam_update = adam
+        try:
+            run()
+        finally:
+            mapper_mod.adam_update = inner_adam
+            if "prof" in window and "profile" not in self.info:
+                window["prof"].__exit__(None, None, None)
+
+    def __call__(self, select_keyframe_num: int = -1, is_end: bool = False):
+        if select_keyframe_num != -1 and not is_end:
+            return self.inner(select_keyframe_num, is_end)
+        import torch
+        from dqo_map_tpu_torch.slam.mapper import (gaussians_fix,
+                                                   render_range_step)
+        m = self.m
+        self.info = {"keyframes": len(m.keyframes), "uncounted_launches": 0,
+                     "uncounted_s": 0.0,
+                     "ate_before_cm": self.system.tracker.eval_ate_series()}
+        # the state, render masks and anchors the pass starts from
+        start = gaussians_fix(m.state, -1.0)
+        masks = self._uncounted(lambda: [
+            render_range_step(start, cam, m.settings, True, -1.0,
+                              keymap["color"], m.settings.tile_size)[0]
+            for _, cam, keymap in m.keyframes])
+        init_stat = {k: getattr(start, k)[:start.count]
+                     for k in ("opacity", "scaling", "xyz", "rotation")}
+        before = self._uncounted(
+            lambda: pass_objective(m, start, masks, init_stat))
+        scans0 = dict(m.scan_counts)
+        launches0 = launches_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.rec.phase = "_final"
+        try:
+            if self.profile:
+                self._profiled(lambda: self.inner(select_keyframe_num, is_end))
+            else:
+                self.inner(select_keyframe_num, is_end)
+        finally:
+            self.rec.phase = ""
+        torch.cuda.synchronize()
+        self.info["seconds"] = time.perf_counter() - t0
+        after_launches = launches_now()
+        self.info["launches"] = {k: after_launches[k] - launches0[k]
+                                 for k in after_launches}
+        self.info["scans"] = {k: m.scan_counts[k] - scans0[k]
+                              for k in m.scan_counts}
+        self.info["objective"] = (before, self._uncounted(
+            lambda: pass_objective(m, m.state, masks, init_stat)))
+
+
+def timed(obj, name: str, log: dict):
+    """Wrap the method `name` of `obj` to append the wall seconds of each
+    call to `log[name]`; `del obj.<name>` takes the wrapper off."""
+    inner = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **kw)
+        finally:
+            log.setdefault(name, []).append(time.perf_counter() - t0)
+
+    setattr(obj, name, wrapper)
+
+
 def run_main_path(args, device, rec):
-    """The slice over `args.frames` frames. Returns (system, cameras,
-    per-frame infos, launches, seconds)."""
+    """`SLAMSystem.run()` over `args.frames` frames. Returns (system,
+    cameras, per-frame infos, the final pass's `FinalPass.info`, the run's
+    result, the seconds of its evaluations and exports, launches,
+    seconds)."""
     import torch
     from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
     from dqo_map_tpu_torch.slam.system import SLAMSystem
@@ -182,35 +379,58 @@ def run_main_path(args, device, rec):
                                  height=args.height)
     print(f"frames: {args.frames} at {args.width}x{args.height}, made in "
           f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
     system = SLAMSystem(slice_config(), cameras=cams, device=device)
     m = system.mapping
     infos = []
     prof = None
+    inner_step = system.step
+
+    def step(cam, i):
+        nonlocal prof
+        if i == args.frames - args.profile:
+            prof = start_profile()
+        info = inner_step(cam, i)
+        info["optimized"] = m.did_optimize
+        infos.append(info)
+        if prof is not None and i == args.frames - 1:
+            prof.__exit__(None, None, None)
+        u, st = m.counts()
+        print(f"frame {i:3d}: tracking {1e3 * info['tracker_s']:8.1f} ms  "
+              f"mapping {1e3 * info['mapper_s']:8.1f} ms  alive {u + st}"
+              f"  stable {st}  entries {info['render']['num_entries']}"
+              + ("  (optimize)" if m.did_optimize else ""))
+        return info
+
+    system.step = step
+    final = FinalPass(system, rec, profile=args.profile > 0)
+    m.global_optimization = final
+    tail = {}
+    for obj, name in ((system, "_eval"), (system.tracker, "save_traj"),
+                      (m, "save_model")):
+        timed(obj, name, tail)
     scans0 = dict(m.scan_counts)
     reset_launches()
     t0 = time.perf_counter()
     with rec:
-        for i, cam in enumerate(cams):
-            if i == args.frames - args.profile:
-                prof = start_profile()
-            info = system.step(cam, i)
-            info["optimized"] = m.did_optimize
-            m.time += 1
-            infos.append(info)
-            u, st = m.counts()
-            print(f"frame {i:3d}: tracking {1e3 * info['tracker_s']:8.1f} ms  "
-                  f"mapping {1e3 * info['mapper_s']:8.1f} ms  alive {u + st}"
-                  f"  stable {st}  entries {info['render']['num_entries']}"
-                  + ("  (optimize)" if m.did_optimize else ""))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        result = system.run(eval_every=args.frames, verbose=False)
+    torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     launches = launches_now()
+    del system.step, m.global_optimization      # the wrappers
+    del system._eval, system.tracker.save_traj, m.save_model
     check_launches("main path", launches, scans0, m.scan_counts, m.renders)
     check_scans_fall(m, 0)
+    if final.info is None:
+        raise RuntimeError("run() ran no final pass")
     if prof is not None:
-        report_profile(prof, infos[-args.profile:])
-    return system, cams, infos, launches, seconds
+        part = infos[-args.profile:]
+        report_profile(prof, sum(i["tracker_s"] + i["mapper_s"] for i in part),
+                       len(part), "frame", "slice_trace.json")
+    if "profile" in final.info:
+        report_profile(*final.info.pop("profile"), "final-pass iteration",
+                       "final_pass_trace.json")
+    return system, cams, infos, final.info, result, tail, launches, seconds
 
 
 def keyframe_phase(system, device, rec) -> dict:
@@ -239,24 +459,25 @@ def start_profile():
     return prof
 
 
-def report_profile(prof, infos):
-    """Device time by kernel over the profiled frames (the 15 largest and
-    the blend kernels), and the device's busy share of their wall time."""
-    import os
-    prof.__exit__(None, None, None)
+def report_profile(prof, wall_s: float, n: int, unit: str, trace: str):
+    """Device time by kernel over a profiled window of `n` units (frames
+    or iterations) that took `wall_s` (the 15 largest and the blend
+    kernels), the device's busy share of the window and its kernel
+    launches per unit; the trace goes to `chiprun_out/<trace>`."""
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    wall_us = 1e6 * sum(i["tracker_s"] + i["mapper_s"] for i in infos)
-    print(f"profile of {len(infos)} frames: device busy {busy_us / 1e3:.1f} ms "
-          f"of {wall_us / 1e3:.1f} ms wall ({100 * busy_us / wall_us:.1f}%)")
+    wall_us = 1e6 * wall_s
+    print(f"profile of {n} {unit}s: device busy {busy_us / 1e3:.1f} ms "
+          f"of {wall_us / 1e3:.1f} ms wall ({100 * busy_us / wall_us:.1f}%); "
+          f"{sum(e.count for e in events) / n:.0f} kernel launches per {unit}")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     # the 15 largest, and the blend kernels wherever they rank
     for e in ranked[:15] + [e for e in ranked[15:] if "blend_" in e.key]:
-        print(f"  {e.self_device_time_total / 1e3 / len(infos):9.3f} ms/frame "
-              f"{e.count / len(infos):7.1f} calls/frame  {e.key[:90]}")
+        print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/{unit} "
+              f"{e.count / n:7.1f} calls/{unit}  {e.key[:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace("chiprun_out/slice_trace.json")
+    prof.export_chrome_trace(os.path.join("chiprun_out", trace))
 
 
 def quality(system, cams, infos, min_depth=0.1, max_depth=8.0) -> dict:
@@ -478,6 +699,194 @@ def check_bwd(name, args, kw, launches, layout) -> dict:
                            tile_entries(args[2], *layout)), **order_ms)
 
 
+def report_times(infos, final: dict, tail: dict, seconds: float):
+    """Per-frame times (optimize frames apart, after warm-up) and where the
+    whole run's time went."""
+    for label, sel in (("optimize frames", True), ("other frames", False)):
+        part = [i for i in infos[WARMUP_FRAMES:] if i["optimized"] == sel] \
+            or [i for i in infos if i["optimized"] == sel]
+        if part:
+            tr = 1e3 * sum(i["tracker_s"] for i in part) / len(part)
+            mp = 1e3 * sum(i["mapper_s"] for i in part) / len(part)
+            print(f"per frame, {label} ({len(part)}): tracking {tr:.1f} ms, "
+                  f"mapping {mp:.1f} ms, total {tr + mp:.1f} ms")
+    frames_s = sum(i["tracker_s"] + i["mapper_s"] for i in infos)
+    parts = {"frames": frames_s, "final pass": final["seconds"],
+             f"evaluations ({len(tail['_eval'])})": sum(tail["_eval"]),
+             "trajectory": sum(tail["save_traj"]),
+             "PLY export": sum(tail["save_model"]),
+             "the final pass's objective sums and masks (this script's)":
+                 final["uncounted_s"]}
+    print(f"whole run {seconds:.2f} s: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in parts.items())
+        + f", the rest {seconds - sum(parts.values()):.3f} s; evaluations "
+        + " / ".join(f"{x:.3f}" for x in tail["_eval"]) + " s")
+
+
+def report_final(system, final: dict, result: dict):
+    """The final pass's counts, times, objective and the quality before
+    and after it (the evaluations at the last frame before the pass and
+    after it)."""
+    m = system.mapping
+    sc, kf = final["scans"], final["keyframes"]
+    want = kf * int(system.cfg.map.final_global_iter)
+    print(f"final pass: {kf} keyframes {m.keyframe_ids}, {sc['iters']} "
+          f"iterations ({want} wanted), {sc['range_renders']} range renders; "
+          f"{final['seconds']:.2f} s, "
+          f"{1e3 * final['seconds'] / max(sc['iters'], 1):.1f} ms an "
+          f"iteration; launches {final['launches']}; the objective's and "
+          f"masks' own {final['uncounted_launches']} launches not counted")
+    if sc["final"] != 1 or sc["iters"] != want:
+        raise RuntimeError(f"the final pass ran {sc}, wanted one pass of "
+                           f"{want} iterations")
+    if final["launches"]["blend_fwd"] != sc["iters"] + sc["range_renders"] \
+            or final["launches"]["blend_bwd"] != sc["iters"]:
+        raise RuntimeError(f"final pass launches {final['launches']} for "
+                           f"{sc['iters']} iterations")
+    before, after = final["objective"]
+    print(f"final pass objective over every keyframe: {before:.6f} -> "
+          f"{after:.6f}")
+    if not after < before:
+        raise RuntimeError(f"the final pass did not optimise: {before} -> "
+                           f"{after}")
+    pre = [h for h in system.metrics_history if h["frame"] != "final"][-1]
+    q0 = (pre["psnr"], pre["depth_l1_cm"], final["ate_before_cm"])
+    q1 = (result["psnr"], result["depth_l1_cm"], result["ate_cm"])
+    for label, (p, d, a) in ((f"before the final pass (frame {pre['frame']})",
+                              q0), ("after it (final)", q1)):
+        print(f"evaluation {label}: PSNR {p:.2f} dB, depth-L1 {d:.3f} cm, "
+              f"ATE {a:.4f} cm")
+    if not all(math.isfinite(x) for x in q0 + q1) or min(q0[0], q1[0]) <= 15:
+        raise RuntimeError(f"evaluation off: before {q0}, after {q1}")
+    print(f"final evaluation: SSIM {result['ssim']:.4f}, MS-SSIM "
+          f"{result['ms_ssim']:.4f}, colour-L1 {result['color_l1']:.4f}, "
+          f"valid ratio {result['valid_ratio']:.4f}; fps {result['fps']:.3f}, "
+          f"peak device memory {result['max_mem_GB']:.2f} GiB")
+
+
+def check_outputs(system) -> str:
+    """The files `run()` writes; returns the merged PLY's path."""
+    import glob
+    from dqo_map_tpu_torch.models import gaussian_map as gm
+    m = system.mapping
+    base = os.path.join(RUN_DIR, "save_model", f"frame_{m.time:04d}",
+                        f"iter_{m.iter:04d}")
+    want = [os.path.join(RUN_DIR, "save_traj", f) for f in (
+        "pose_es.npy", "pose_gt.npy", "poses.txt", "ate.txt")]
+    want += [base + "_stable.ply", base + "_merge.ply",
+             os.path.join(RUN_DIR, "performance.json"),
+             os.path.join(RUN_DIR, "eval_render", "color_compare.png"),
+             os.path.join(RUN_DIR, "eval_render", "depth_compare.png")]
+    missing = [f for f in want if not os.path.isfile(f)]
+    # the unstable PLY is written only for a non-empty subset, and the
+    # final pass promotes every unstable Gaussian
+    has_unstable = int((m.state.status == gm.UNSTABLE).sum()) > 0
+    if os.path.isfile(base + ".ply") != has_unstable:
+        missing.append(base + ".ply" + (" (unexpected)" if not has_unstable
+                                        else ""))
+    if missing:
+        raise RuntimeError(f"run() did not write {missing}")
+    files = sorted(glob.glob(os.path.join(RUN_DIR, "**", "*"), recursive=True))
+    print(f"run outputs ({'with' if has_unstable else 'no'} unstable PLY): "
+          + ", ".join(os.path.relpath(f, RUN_DIR) for f in files
+                      if os.path.isfile(f)))
+    return base + "_merge.ply"
+
+
+def _render(state, cin, settings):
+    import torch
+    from dqo_map_tpu_torch.slam.renderer import render_state
+    with torch.no_grad():
+        return render_state(state, cin, settings, "global")
+
+
+def ply_round_trip(system, cin, merge_ply: str):
+    """The saved merged PLY, reloaded and rendered at the last camera,
+    against the render of the saved state: colour to 1e-5, depth to
+    1e-4."""
+    from dqo_map_tpu_torch.utils.ply import load_map_ply
+    m = system.mapping
+    loaded = load_map_ply(merge_ply, m.state.capacity, device=m.device)
+    a, b = _render(m.state, cin, m.settings), _render(loaded, cin, m.settings)
+    errs = {k: float((a[k] - b[k]).abs().max()) for k in ("render", "depth")}
+    print(f"PLY round trip: {loaded.count} Gaussians reloaded; render at the "
+          f"last camera off by {errs['render']:.3g} (colour), "
+          f"{errs['depth']:.3g} (depth)")
+    if not (errs["render"] <= 1e-5 and errs["depth"] <= 1e-4):
+        raise RuntimeError(f"PLY round trip off: {errs}")
+
+
+def checkpoint_round_trip(system, cams, cin, device):
+    """`save_checkpoint`, then `resume` into a fresh system: map fields,
+    keyframe ids, poses and time equal, the render at the last camera
+    bit-equal. The checkpoint (the memory frames' maps, some 100 MB a
+    frame at this width) is deleted after."""
+    import numpy as np
+    import torch
+    from dqo_map_tpu_torch.models.gaussian_map import FIELDS
+    from dqo_map_tpu_torch.slam.system import SLAMSystem
+    path = os.path.join(RUN_DIR, "checkpoint", "ckpt")
+    t0 = time.perf_counter()
+    system.save_checkpoint(path)
+    t1 = time.perf_counter()
+    fresh = SLAMSystem(system.cfg, cameras=cams, device=device)
+    nxt = fresh.resume(path)
+    t2 = time.perf_counter()
+    size = sum(os.path.getsize(path + ext) for ext in (".npz", ".pkl"))
+    shutil.rmtree(os.path.dirname(path))
+    a, b = system.mapping, fresh.mapping
+    bad = [f for f in FIELDS
+           if not torch.equal(getattr(a.state, f), getattr(b.state, f))]
+    if a.state.count != b.state.count:
+        bad.append("count")
+    if a.keyframe_ids != b.keyframe_ids:
+        bad.append("keyframe_ids")
+    if nxt != a.time or b.time != a.time:
+        bad.append("time")
+    if not all(np.array_equal(p, q) for p, q in
+               zip(system.tracker.poses_np(), fresh.tracker.poses_np())):
+        bad.append("poses")
+    ra, rb = _render(a.state, cin, a.settings), _render(b.state, cin, b.settings)
+    bad += [f"render {k}" for k in ("render", "depth", "depth_index_map",
+                                    "T_map") if not torch.equal(ra[k], rb[k])]
+    print(f"checkpoint round trip: {size / 1e6:.1f} MB written in "
+          f"{t1 - t0:.1f} s, resumed in {t2 - t1:.1f} s at frame {nxt}; "
+          + ("map, keyframes, poses, time and render equal" if not bad
+             else f"differ: {bad}"))
+    if bad:
+        raise RuntimeError(f"checkpoint round trip differs in {bad}")
+
+
+def cli_phase():
+    """The `run_slam` CLI on the card, as a subprocess, on 6 frames of
+    `configs/synthetic/room.yaml` (the reader's 160x120) with the object
+    layer off."""
+    os.makedirs(CLI_DIR, exist_ok=True)
+    out = os.path.join(CLI_DIR, "run")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = os.path.join(CLI_DIR, "config.yaml")
+    with open(cfg, "w") as f:
+        # the repo's synthetic room, without the object layer
+        f.write("parent: configs/synthetic/room.yaml\nuse_object: false\n"
+                f"frame_num: 6\nsave_path: {out}\n")
+    cmd = [sys.executable, "-m", "dqo_map_tpu_torch.cli.run_slam", "--config",
+           cfg, "--max-frames", "6", "--quiet"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} exited {res.returncode}:\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    with open(os.path.join(out, "result.json")) as f:
+        result = json.load(f)
+    if set(result) != RESULT_KEYS:
+        raise RuntimeError(f"result.json keys {sorted(result)}, wanted "
+                           f"{sorted(RESULT_KEYS)}")
+    print(f"CLI: {' '.join(cmd)}: exit 0 in {seconds:.1f} s; result.json "
+          f"PSNR {result['psnr']:.2f} dB, depth-L1 "
+          f"{result['depth_l1_cm']:.3f} cm, ATE {result['ate_cm']:.4f} cm")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=12)
@@ -504,12 +913,14 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     rec = Recorder()
-    system, cams, infos, launches, seconds = run_main_path(args, device, rec)
+    system, cams, infos, final, result, tail, launches, seconds = run_main_path(
+        args, device, rec)
     m = system.mapping
     extra = (keyframe_phase(system, device, rec)
              if m.scan_counts["global"] == 0 else None)
     print(f"scans run: local {m.scan_counts['local']}, keyframe "
-          f"{m.scan_counts['global']}; Adam steps {m.scan_counts['iters']}")
+          f"{m.scan_counts['global']}, final {m.scan_counts['final']}; Adam "
+          f"steps {m.scan_counts['iters']}")
     if m.scan_counts["local"] == 0 or m.scan_counts["global"] == 0:
         raise RuntimeError(f"a scan kind never ran: {m.scan_counts}")
     for k in KERNELS:
@@ -517,15 +928,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{k} was never launched on the main path "
                                "or the keyframe path")
 
-    for label, sel in (("optimize frames", True), ("other frames", False)):
-        part = [i for i in infos[WARMUP_FRAMES:] if i["optimized"] == sel] \
-            or [i for i in infos if i["optimized"] == sel]
-        if part:
-            tr = 1e3 * sum(i["tracker_s"] for i in part) / len(part)
-            mp = 1e3 * sum(i["mapper_s"] for i in part) / len(part)
-            print(f"per frame, {label} ({len(part)}): tracking {tr:.1f} ms, "
-                  f"mapping {mp:.1f} ms, total {tr + mp:.1f} ms")
-    print(f"whole run {seconds:.1f} s")
+    report_times(infos, final, tail, seconds)
     u, st = m.counts()
     rec_ = m.receipts
     print(f"alive gaussians {u + st} (stable {st}); live entries last render "
@@ -538,6 +941,8 @@ def main(argv=None) -> int:
           f"ICP failures {q['icp_fail_count']}")
     if not (u + st > 0 and q["psnr"] > 15.0 and math.isfinite(q["ate_cm"])):
         raise RuntimeError(f"main path output off: {q}, alive {u + st}")
+    report_final(system, final, result)
+    merge_ply = check_outputs(system)
 
     # K1 on the final map at the last camera, as the model render calls it
     from dqo_map_tpu_torch.ops.rasterize import blend_inputs, blend_params
@@ -555,16 +960,25 @@ def main(argv=None) -> int:
     layout = {k: (st.chunk, st.max_chunks_per_tile) for k, st in (
         ("blend_fwd", s), ("blend_bwd", s), ("blend_fwd_bg", m.usettings),
         ("blend_bwd_bg", m.usettings))}
+    layout["blend_fwd_final"] = layout["blend_bwd_final"] = layout["blend_fwd"]
+    final_launches = {"blend_fwd_final": final["launches"]["blend_fwd"],
+                      "blend_bwd_final": final["launches"]["blend_bwd"]}
     with torch.no_grad():
         rows = [check_fwd("blend_fwd", fwd_args, {"tile_order": b.tile_order},
                           launches["blend_fwd"], layout["blend_fwd"])]
-        for name in KERNELS[1:]:
+        for name in KERNELS[1:] + FINAL_ROWS:
             a, kw = rec.last[name]
             check = check_bwd if "bwd" in name else check_fwd
-            rows.append(check(name, a, kw, launches[name], layout[name]))
+            rows.append(check(name, a, kw,
+                              final_launches.get(name, launches.get(name)),
+                              layout[name]))
     if extra:
         for row in rows:
-            row["keyframe_path_launches"] = extra[row["name"]]
+            row["keyframe_path_launches"] = extra.get(row["name"], 0)
+
+    ply_round_trip(system, cin, merge_ply)
+    checkpoint_round_trip(system, cams, cin, device)
+    cli_phase()
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,9 @@
 read with `np.asarray` (or those `map_state_to_numpy` wrote) and builds
 the port's `MapState`; `map_state_to_numpy` does the reverse. Field names,
 shapes and dtypes are the same on both sides; `count` is a 0-d int32.
+`map_state_from_checkpoint` reads the map of a checkpoint that either
+package wrote (both store it as `map_<field>` arrays in `<path>.npz`); a
+PLY either package wrote loads through `utils.ply.load_map_ply`.
 """
 
 from __future__ import annotations
@@ -25,3 +28,12 @@ def map_state_to_numpy(state: MapState) -> dict:
     out = {f: getattr(state, f).detach().cpu().numpy() for f in FIELDS}
     out["count"] = np.int32(state.count)
     return out
+
+
+def map_state_from_checkpoint(path: str, device="cuda") -> MapState:
+    """The map of the checkpoint `path` (with or without its `.npz`)."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    with np.load(path) as z:
+        return map_state_from_numpy(
+            {f: z[f"map_{f}"] for f in FIELDS + ("count",)}, device)

@@ -1,0 +1,1 @@
+from .readers import Dataset  # noqa: F401

@@ -1,5 +1,6 @@
 """K-nearest-neighbour search as chunked distance matrix products
-(counterpart of `dqo_map_tpu/ops/knn.py`, the exact path).
+(counterpart of `dqo_map_tpu/ops/knn.py`, the exact path: `knn` and
+`knn2`).
 
 |x-y|^2 = |x|^2 + |y|^2 - 2 x.y, one `torch.matmul` per (row, column)
 chunk, an exact `torch.topk` per chunk and a running top-k merge across the
@@ -19,6 +20,16 @@ def _topk_merge(d, best_d, best_i, col0: int, k: int):
     cat_i = torch.cat([best_i, ni + col0], dim=1)
     md, mi = torch.topk(cat_d, k, dim=1, largest=False)
     return md, torch.gather(cat_i, 1, mi)
+
+
+def knn(queries: torch.Tensor, candidates: torch.Tensor,
+        cand_valid: torch.Tensor, k: int = 3, row_chunk: int = 4096,
+        col_chunk: int = 65536):
+    """The exact k nearest valid candidates of each query: (squared
+    distances (M, k), indices (M, k) into `candidates`), as `knn2`'s first
+    search."""
+    return knn2(queries, candidates, cand_valid, cand_valid, k, row_chunk,
+                col_chunk)[0]
 
 
 def knn2(queries: torch.Tensor, candidates: torch.Tensor,

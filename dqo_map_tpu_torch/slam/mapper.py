@@ -20,19 +20,25 @@ schedule, its loss and the update:
 - the keyframe scan (`global_optimization`) optimizes, on a keyframe, the
   stable Gaussians whose rects touch the tiles of largest colour error in
   the newest keyframes, at a tenth of the learning rate and with the
-  positions fixed.
+  positions fixed;
+- the final whole-history pass (`global_optimization(is_end=True)`, at the
+  end of `SLAMSystem.run`) promotes every unstable Gaussian, then runs
+  `final_global_iter` Adam steps per keyframe over all keyframes, each
+  whole (no tile mask), with SSIM in the loss and no depth term, on an
+  unpinned schedule.
 
 Every frame is binned once at scan entry and blended from the current
 parameters with those tile lists. The compact scans compute their loss on
 the kernels' tile rows, where the padded edge pixels are outside the
 render mask: the same masked means as in image space. With
-`gaussian_update_iter=0` no scan runs. The final whole-history pass of the
-reference's `run()` and the semantic and instance losses are not ported.
+`gaussian_update_iter=0` no per-frame scan runs. `save_model` writes the
+map as PLY files. The semantic and instance losses are not ported.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -52,6 +58,8 @@ from ..utils import image as im
 from ..utils.losses import ssim as ssim_fn
 from ..utils.math3d import (normalize, quat_to_rotmat, rot_compare, slerp,
                             trans_compare)
+from ..utils.monitor import ScalarLogger
+from ..utils.ply import save_map_ply
 from .renderer import (Renderer, compute_binning_state, coverage_mask_state,
                        render_state, state_geometry)
 
@@ -231,6 +239,7 @@ def _receipts(reports: dict, binnings: list, iters: int):
 def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
                   weights, settings: RenderSettings, iters: int,
                   status_value: int, add_depth_thres: float,
+                  use_ssim: bool = False, with_tile_mask: bool = True,
                   subset: str = "global"):
     """`iters` Adam steps over the Gaussians with status `status_value`,
     each on a render of `subset` at frame `rand_idx[it]`, in image space.
@@ -238,8 +247,10 @@ def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
     frames: stacked tensors: color (F,H,W,3), depth (F,H,W), normal
     (F,H,W,3), render_mask (F,H,W), tile_mask (F,TH,TW), w2c and full_proj
     (F,4,4), cam_pos (F,3); K (3,3), tan_fovx / tan_fovy. rand_idx:
-    (iters,) frame choices (`Mapping._rand_schedule`). Returns (state,
-    report of (iters,) loss curves and the binning receipts)."""
+    (iters,) frame choices (`Mapping._rand_schedule`). `use_ssim` adds the
+    SSIM term to the loss; with `with_tile_mask=False` every frame is
+    binned and rendered whole, its tile mask unused. Returns (state, report
+    of (iters,) loss curves and the binning receipts)."""
     weights = dict(weights)
     B = state.count
     sub = _substate(state, slice(0, B))
@@ -247,7 +258,8 @@ def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
     init_stat = {k: getattr(sub, k) for k in ("opacity", "scaling", "xyz",
                                               "rotation")}
     n_frames = frames["w2c"].shape[0]
-    tms = frames["tile_mask"]
+    tms = (frames["tile_mask"] if with_tile_mask
+           else [None] * n_frames)
     binnings = [compute_binning_state(sub, _frame_cam(frames, f), settings,
                                       subset, tms[f]) for f in range(n_frames)]
 
@@ -259,7 +271,7 @@ def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
                        "normal_map": frames["normal"][f],
                        "render_mask": frames["render_mask"][f]}
         return compute_loss(out, image_input, p, init_stat, opt_mask, weights,
-                            add_depth_thres, False)
+                            add_depth_thres, use_ssim)
 
     params, confidence, reports = _adam_scan(sub, iters, rand_idx, lrs,
                                              opt_mask, loss_of)
@@ -638,6 +650,10 @@ class Mapping:
                 getattr(args, "local_max_tiles_per_gaussian", 8) or 8),
             chunk=128)
         self.time = 0
+        self.iter = 0                       # names the saved PLY files
+        self.save_path = args.save_path
+        self.logger = ScalarLogger(self.save_path,
+                                   enabled=bool(args.use_tensorboard))
         self.memory_length = args.memory_length
         self.processed_frames: list = []    # [(cam_inputs, frame_map)]
         self.keyframe_ids: list = []
@@ -650,10 +666,12 @@ class Mapping:
         self._host_rng = np.random.default_rng(2024)
         self.receipts = dict.fromkeys(RECEIPTS, 0)   # max over the renders
         self.renders = 0
-        # scans run, their Adam steps, and the renders they make besides
-        # the steps' own: stable backgrounds and keyframe range renders
+        # scans run (local, keyframe, final pass), their Adam steps, and the
+        # renders they make besides the steps' own: stable backgrounds and
+        # keyframe range renders
         self.scan_counts = dict.fromkeys(
-            ("local", "global", "iters", "bg_renders", "range_renders"), 0)
+            ("local", "global", "final", "iters", "bg_renders",
+             "range_renders"), 0)
         # (kind, (iters,) objective curve) of every scan run
         self.scan_log: list = []
 
@@ -800,11 +818,14 @@ class Mapping:
             "tan_fovy": cam0["tan_fovy"],
         }
 
-    def _rand_schedule(self, iters: int, n_frames: int) -> np.ndarray:
-        """A uniform frame choice per Adam step, the second half pinned to
-        the newest frame, from the mapper's seeded generator."""
+    def _rand_schedule(self, iters: int, n_frames: int,
+                       second_half_last: bool = True) -> np.ndarray:
+        """A uniform frame choice per Adam step, from the mapper's seeded
+        generator; with `second_half_last` the second half pinned to the
+        newest frame."""
         idx = self._host_rng.integers(0, n_frames, size=iters).astype(np.int32)
-        idx[iters // 2 + 1:] = n_frames - 1
+        if second_half_last:
+            idx[iters // 2 + 1:] = n_frames - 1
         return idx
 
     def _count_scan(self, kind: str, reports: dict):
@@ -818,6 +839,10 @@ class Mapping:
         if reports["iters"]:
             self.scan_log.append((kind, (reports["total_loss"]
                                          + reports["scale_loss"]).detach()))
+            if self.logger.enabled:
+                self.logger.log_dict(self.time, {
+                    k: float(v[-1]) if torch.is_tensor(v) else v
+                    for k, v in reports.items()}, f"{kind}/")
 
     def local_optimize(self, frame: Camera):
         """Optimize the unstable Gaussians over the memory frames, then
@@ -858,23 +883,44 @@ class Mapping:
                             is_end: bool = False):
         """The keyframe scan: the stable Gaussians that touch the tiles of
         largest colour error in the newest `select_keyframe_num` keyframes,
-        at a tenth of the learning rate, positions fixed."""
+        at a tenth of the learning rate, positions fixed.
+
+        With `select_keyframe_num=-1` the final whole-history pass: every
+        unstable Gaussian promoted first, then `final_global_iter` steps per
+        keyframe over every keyframe, whole, with SSIM and without the depth
+        term, the positions fixed, on an unpinned schedule. `is_end` also
+        promotes first."""
         if select_keyframe_num == -1 or is_end:
-            raise NotImplementedError(
-                "the final whole-history optimization of run() is not ported")
+            self.state = gaussians_fix(self.state, -1.0)
         if self.counts()[1] == 0 or not self.keyframes:
             return
         ts = self.settings.tile_size
-        n_sel = min(select_keyframe_num, len(self.keyframes))
+        is_final = select_keyframe_num == -1
+        n_sel = (len(self.keyframes) if is_final
+                 else min(select_keyframe_num, len(self.keyframes)))
         entries = []
         for _, cam, keymap in (self.keyframes[-(i + 1)] for i in range(n_sel)):
             rm, tm = render_range_step(self.state, cam, self.settings, True,
-                                       0.4, keymap["color"], ts)
+                                       -1.0 if is_final else 0.4,
+                                       keymap["color"], ts)
             self.scan_counts["range_renders"] += 1
             entries.append({"color": keymap["color"], "depth": keymap["depth"],
                             "normal": keymap["normal"], "render_mask": rm,
-                            "tile_mask": tm, "cam": cam})
+                            "tile_mask": None if is_final else tm, "cam": cam})
         frames = self._stack_frames(entries, ts)
+        if is_final:
+            a = self.args
+            iters = len(self.keyframes) * int(a.final_global_iter)
+            lrs = self._lrs(a.feature_lr_coef, a.scaling_lr_coef,
+                            a.rotation_lr_coef, position_lr=0.0)
+            rand_idx = self._rand_schedule(iters, n_sel,
+                                           second_half_last=False)
+            self.state, reports = optimize_scan(
+                self.state, frames, rand_idx, lrs, self._weights_t(depth=0.0),
+                self.settings, iters, gm.STABLE, a.add_depth_thres,
+                use_ssim=True, with_tile_mask=False, subset="stable")
+            self._count_scan("final", reports)
+            return
         iters = int(self.args.gaussian_update_iter)
         lrs = self._lrs(lr_scale=0.1, position_lr=0.0)
         rand_idx = self._rand_schedule(iters, n_sel)
@@ -920,3 +966,26 @@ class Mapping:
                 a.add_depth_thres, a.add_normal_thres, self.time)
         self.state = gaussians_delete(self.state, self.time,
                                       a.unstable_time_window, unstable=True)
+
+    # --------------------------------------------------------------
+    def save_model(self, path: Optional[str] = None) -> str:
+        """Write the map as PLY files: `<path>.ply` (unstable),
+        `<path>_stable.ply`, `<path>_merge.ply` (all alive) and
+        `<path>_obj<id>.ply` per object id; an empty subset writes no file.
+        By default `path` is `save_model/frame_<time>/iter_<iter>` under the
+        run's save path. Returns `path`."""
+        if path is None:
+            d = os.path.join(self.save_path, "save_model",
+                             f"frame_{self.time:04d}")
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(d, f"iter_{self.iter:04d}")
+        for suffix, subset in (("", "unstable"), ("_stable", "stable"),
+                               ("_merge", "global")):
+            save_map_ply(self.state, path + suffix + ".ply", subset=subset,
+                         include_confidence=True)
+        obj_ids = self.state.obj_id.cpu().numpy()
+        status = self.state.status.cpu().numpy()
+        for oid in np.unique(obj_ids[(obj_ids >= 0) & (status != gm.DEAD)]):
+            save_map_ply(self.state, path + f"_obj{oid}.ply", subset="global",
+                         include_confidence=True, mask=obj_ids == oid)
+        return path

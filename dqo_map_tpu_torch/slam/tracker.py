@@ -6,11 +6,17 @@ confidence masks and the ICP pyramids. With `async_pose` (set by
 SLAMSystem) the pose chain stays on the device: the ICP result is composed
 there, the frame adopts the device pose, and the failure check reads the
 PREVIOUS frame's residual, one frame late, so the host waits on nothing.
+A failed frame's diagnostics are kept on the device and written at the end
+of the run (`flush_icp_failures`, called by `save_traj`), which also writes
+the trajectory files and the ATE.
 """
 
 from __future__ import annotations
 
+import atexit
 import math
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -133,6 +139,9 @@ class Tracker:
         self.pose_es: list = []        # numpy (4,4) or device tensors
         self.timestamps: list = []
         self.icp_fail_count = 0
+        self.save_path: Optional[str] = None   # set by SLAMSystem for dumps
+        self._fail_dumps = 0
+        self._fail_pending: list = []
         self.async_pose = False        # device-side pose chain (SLAMSystem)
         self._pending_p2p = None
         self._last_pyr = None          # (vertex_pyr, normal_pyr) of frame t0
@@ -177,6 +186,7 @@ class Tracker:
                     if (p_prev > self.icp_cfg.fail_threshold
                             or vr_prev < self.icp_cfg.min_valid_ratio):
                         self.icp_fail_count += 1
+                        self._dump_icp_failure(frame_map, p_prev, None)
                 self._pending_p2p = torch.stack([p2p, valid_ratio.float()])
                 pose_dev = self._pose_dev() @ pose10
                 self._last_pyr = self._curr_pyr
@@ -190,10 +200,11 @@ class Tracker:
             p2p, valid_ratio = float(p2p), float(valid_ratio)
             success = (p2p <= self.icp_cfg.fail_threshold
                        and valid_ratio >= self.icp_cfg.min_valid_ratio)
+            pose10 = pose10.cpu().numpy().astype(np.float64)
             if not success:
                 self.icp_fail_count += 1
-            pose_t1_w = (self._pose_np(self.pose_es[-1])
-                         @ pose10.cpu().numpy().astype(np.float64))
+                self._dump_icp_failure(frame_map, p2p, pose10)
+            pose_t1_w = self._pose_np(self.pose_es[-1]) @ pose10
 
         self._last_pyr = self._curr_pyr
         self.pose_es.append(np.asarray(pose_t1_w, np.float64))
@@ -219,6 +230,53 @@ class Tracker:
                                    device=self.device)
         return torch.eye(4, dtype=torch.float32, device=self.device)
 
+    def _dump_icp_failure(self, frame_map: dict, p2p: float,
+                          pose10: Optional[np.ndarray], max_dumps: int = 5):
+        """Keep a failed frame's diagnostics, at most `max_dumps`: the
+        finest-level vertex maps of both frames, the depth, the rejected
+        relative pose (None where the check ran a frame late) and the
+        residual. Only references to the device tensors are kept here;
+        `flush_icp_failures` writes them, at the end of the run (or at
+        exit, so that they outlive a crash), never inside a tracked
+        frame."""
+        if self.save_path is None or self._fail_dumps >= max_dumps:
+            return
+        self._fail_pending.append({
+            "idx": len(self.pose_es), "p2p": p2p, "pose10": pose10,
+            "vertex_last": (self._last_pyr[0][-1]
+                            if self._last_pyr is not None else None),
+            "vertex_curr": self._curr_pyr[0][-1],
+            "depth": frame_map["depth_map"],
+            "n_fail": self.icp_fail_count,
+        })
+        self._fail_dumps += 1
+        if self._fail_dumps == 1:
+            atexit.register(self.flush_icp_failures)
+        if self._fail_dumps >= max_dumps:
+            self.flush_icp_failures()
+
+    def flush_icp_failures(self):
+        """Write the kept failure diagnostics to
+        `<save_path>/icp_fail/fail_<frame>.npz`."""
+        if not self._fail_pending or self.save_path is None:
+            return
+        d = os.path.join(self.save_path, "icp_fail")
+        os.makedirs(d, exist_ok=True)
+
+        def host(x):
+            if x is None:
+                return np.zeros(0)
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+        for rec in self._fail_pending:
+            np.savez_compressed(
+                os.path.join(d, f"fail_{rec['idx']:05d}.npz"),
+                p2p=rec["p2p"], pose10=host(rec["pose10"]),
+                vertex_last=host(rec["vertex_last"]),
+                vertex_curr=host(rec["vertex_curr"]),
+                depth=host(rec["depth"]), n_fail=rec["n_fail"])
+        self._fail_pending = []
+
     def update_last_status(self, frame, render_depth, frame_depth,
                            render_normal, frame_normal):
         """With `icp_use_model_depth`, the fused rendered depth becomes the
@@ -239,3 +297,25 @@ class Tracker:
         es = np.stack([p[:3, 3] for p in self.poses_np()])
         gt = np.stack([p[:3, 3] for p in self.pose_gt])
         return eval_ate(es, gt)
+
+    def save_traj(self, save_path: str) -> float:
+        """Write `save_traj/`: the estimated and ground-truth poses
+        (`pose_es.npy`, `pose_gt.npy`), the estimate as a TUM trajectory
+        (`poses.txt`: stamp tx ty tz qx qy qz qw) and the ATE in cm
+        (`ate.txt`); flush the failure diagnostics. Returns the ATE."""
+        from scipy.spatial.transform import Rotation
+        traj_dir = os.path.join(save_path, "save_traj")
+        os.makedirs(traj_dir, exist_ok=True)
+        self.flush_icp_failures()
+        pose_es = np.stack(self.poses_np())
+        np.save(os.path.join(traj_dir, "pose_es.npy"), pose_es)
+        np.save(os.path.join(traj_dir, "pose_gt.npy"), np.stack(self.pose_gt))
+        ate = self.eval_ate_series()
+        with open(os.path.join(traj_dir, "poses.txt"), "w") as f:
+            for ts, p in zip(self.timestamps, pose_es):
+                q = Rotation.from_matrix(p[:3, :3]).as_quat()
+                t = p[:3, 3]
+                f.write(f"{ts} {t[0]} {t[1]} {t[2]} {q[0]} {q[1]} {q[2]} {q[3]}\n")
+        with open(os.path.join(traj_dir, "ate.txt"), "w") as f:
+            f.write(f"{ate}\n")
+        return ate

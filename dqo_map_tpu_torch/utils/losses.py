@@ -1,6 +1,7 @@
-"""Loss and metric functions: L1, PSNR, SSIM with an 11x11 Gaussian window
-(counterpart of `dqo_map_tpu/utils/losses.py`). Images are channel-first
-(C,H,W) for `ssim`, any shape for the others.
+"""Loss and metric functions: L1, L2, masked L1, PSNR, SSIM with an 11x11
+Gaussian window and multi-scale SSIM (counterpart of
+`dqo_map_tpu/utils/losses.py`). Images are channel-first (C,H,W) for `ssim`
+and `ms_ssim`, any shape for the others.
 """
 
 from __future__ import annotations
@@ -14,6 +15,22 @@ import torch.nn.functional as F
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.abs(a - b).mean()
+
+
+def l2_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ((a - b) ** 2).mean()
+
+
+def masked_l1(a: torch.Tensor, b: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Mean of |a-b| over the elements where `mask` holds (0 for an empty
+    mask); the mask broadcasts over trailing dimensions of `a`."""
+    m = mask.to(a.dtype)
+    while m.ndim < a.ndim:
+        m = m[..., None]
+    num = (torch.abs(a - b) * m).sum()
+    den = m.sum() * (a.numel() / max(1, mask.numel()))
+    return torch.where(den > 0, num / torch.clamp(den, min=1e-12), 0.0)
 
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
@@ -61,3 +78,41 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
     return ssim_map.mean()
+
+
+def ms_ssim(img1: torch.Tensor, img2: torch.Tensor,
+            levels: int = 5) -> torch.Tensor:
+    """Multi-scale SSIM of a (C,H,W) pair with the standard weights. The
+    levels adapt down when the image is too small for 5 halvings (the
+    11-tap window needs 11 pixels a side), so small images score with
+    fewer scales."""
+    max_lv, side = 1, min(img1.shape[-2:])
+    while max_lv < levels and (side >> 1) >= 11:
+        side >>= 1
+        max_lv += 1
+    levels = min(levels, max_lv)
+    weights = torch.tensor([0.0448, 0.2856, 0.3001, 0.2363, 0.1333],
+                           device=img1.device)[:levels]
+    weights = weights / weights.sum()
+
+    def downsample(x):
+        C, H, W = x.shape
+        Hc, Wc = H - H % 2, W - W % 2
+        return x[:, :Hc, :Wc].reshape(C, Hc // 2, 2, Wc // 2, 2).mean(dim=(2, 4))
+
+    taps = _gaussian_taps(11, 1.5)
+    C1, C2 = 0.01**2, 0.03**2
+    mcs, a, b = [], img1, img2
+    for i in range(levels):
+        m = _blur_separable(torch.stack([a, b, a * a, b * b, a * b]), taps)
+        mu1, mu2 = m[0], m[1]
+        s1 = m[2] - mu1 * mu1
+        s2 = m[3] - mu2 * mu2
+        s12 = m[4] - mu1 * mu2
+        cs = ((2 * s12 + C2) / (s1 + s2 + C2)).mean()
+        if i == levels - 1:
+            val = ((2 * mu1 * mu2 + C1) / (mu1 * mu1 + mu2 * mu2 + C1)).mean()
+        mcs.append(torch.clamp(cs, min=0.0))
+        a, b = downsample(a), downsample(b)
+    mcs = torch.stack(mcs)
+    return torch.prod(mcs[:-1] ** weights[:-1]) * (val ** weights[-1])

@@ -1,8 +1,11 @@
 """The port's optimize scans against the JAX package's, on the CPU:
 `optimize_scan` (the local scan in `"global"` mode: the unstable rows over
-the whole map's render) and `compact_optimize_scan` with `use_bg=False`
-(the keyframe scan) and `use_bg=True` (the default local scan), on
-`test_compact_opt.py`'s scene, carried across with `convert.py`. The JAX
+the whole map's render; and the final whole-history pass: the stable rows,
+whole frames with no tile mask, SSIM in the loss, no depth term) and
+`compact_optimize_scan` with `use_bg=False` (the keyframe scan) and
+`use_bg=True` (the default local scan), on `test_compact_opt.py`'s scene,
+carried across with `convert.py`; and both packages' final pass as
+`Mapping.global_optimization(is_end=True)` runs it. The JAX
 side blends with its plain `ref` implementation, the port with its plain
 versions (`blend_blocks_ref` / `blend_bwd_ref`).
 
@@ -76,6 +79,18 @@ def recorded_grads(monkeypatch):
         f.clear_cache()
 
 
+def _flat_scene():
+    """The scene with its Gaussians flattened along their third axis: the
+    final pass has no depth term, and an isotropic Gaussian's colour does
+    not depend on its rotation, so without this every rotation gradient
+    would be rounding noise."""
+    state, frames, settings, lrs, weights = _scene()
+    flat = np.log(np.array([0.06, 0.06, 0.015], np.float32))
+    alive = np.asarray(state.status) != jgm.DEAD
+    scaling = np.where(alive[:, None], flat, np.asarray(state.scaling))
+    return state._replace(scaling=jnp.asarray(scaling)), frames, settings, lrs, weights
+
+
 def _run(mode, state, frames, settings, lrs, weights):
     """One scan in both packages. Returns (JAX state, JAX report, port
     state, port report, the optimized rows)."""
@@ -91,6 +106,17 @@ def _run(mode, state, frames, settings, lrs, weights):
                                        ITERS, gm.UNSTABLE, 0.1, subset="global")
         rows = np.arange(int(state.count))
         opt = status[rows] == jgm.UNSTABLE
+    elif mode == "final":
+        weights = dict(weights, depth=0.0, ssim=0.2)
+        js, jr = jmapper.optimize_scan(state, frames, jnp.asarray(rand_idx), lrs,
+                                       weights, settings, ITERS, jgm.STABLE,
+                                       0.1, use_ssim=True, with_tile_mask=False,
+                                       subset="stable")
+        pst, pr = mapper.optimize_scan(ps, pf, rand_idx, lrs, weights, pset,
+                                       ITERS, gm.STABLE, 0.1, use_ssim=True,
+                                       with_tile_mask=False, subset="stable")
+        rows = np.arange(int(state.count))
+        opt = status[rows] == jgm.STABLE
     else:
         use_bg = mode == "compact_bg"
         mask = (state.status == jgm.UNSTABLE if use_bg else
@@ -106,30 +132,10 @@ def _run(mode, state, frames, settings, lrs, weights):
     return js, jr, pst, pr, rows, opt
 
 
-@pytest.mark.parametrize("mode", ["full", "compact_global", "compact_bg"])
-def test_scan_matches_jax(mode, recorded_grads):
-    jrec, prec = recorded_grads
-    state, frames, settings, lrs, weights = _scene()
-    js, jr, pst, pr, rows, opt = _run(mode, state, frames, settings, lrs, weights)
+def _held_as_jax(state, g, r, jrec, rows, opt):
+    """The maps after a scan (`g` the port's, `r` the JAX package's, both
+    as numpy), held as the module docstring says."""
     n = len(rows)
-    assert sorted(jrec) == sorted(prec) == list(range(ITERS))
-
-    # iteration 0: the same gradients
-    for k in FIELDS:
-        a, b = prec[0][k][:n], jrec[0][k][:n]
-        scale = np.abs(b).max()
-        if k != "opacity":                   # the scene's opacity lr is 0
-            assert scale > 0, k
-        np.testing.assert_allclose(a / (scale + 1e-30), b / (scale + 1e-30),
-                                   atol=2e-4, err_msg=k)
-    for k in ("total_loss", "color_loss", "depth_loss", "scale_loss"):
-        got, ref = pr[k].numpy(), np.asarray(jr[k])
-        np.testing.assert_allclose(got[0], ref[0], rtol=1e-5, err_msg=k)
-        np.testing.assert_allclose(got, ref, rtol=1e-2, atol=1e-7, err_msg=k)
-
-    # the maps after the scan
-    g = map_state_to_numpy(pst)
-    r = {k: np.asarray(v) for k, v in js._asdict().items()}
     assert (g["confidence"] == r["confidence"]).all()
     assert (g["confidence"][rows[opt]] > np.asarray(state.confidence)[rows[opt]]).any()
     assert (g["status"] == r["status"]).all()
@@ -145,6 +151,41 @@ def test_scan_matches_jax(mode, recorded_grads):
     untouched = np.setdiff1d(np.arange(len(g["xyz"])), rows[opt])
     for k in FIELDS:
         assert (g[k][untouched] == np.asarray(getattr(state, k))[untouched]).all(), k
+
+
+def _grads_held_as_jax(jrec, prec, n):
+    """Iteration 0's gradients, every field, to 2e-4 of its largest."""
+    for k in FIELDS:
+        a, b = prec[0][k][:n], jrec[0][k][:n]
+        scale = np.abs(b).max()
+        if k != "opacity":                   # the scene's opacity lr is 0
+            assert scale > 0, k
+        np.testing.assert_allclose(a / (scale + 1e-30), b / (scale + 1e-30),
+                                   atol=2e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["full", "compact_global", "compact_bg",
+                                  "final"])
+def test_scan_matches_jax(mode, recorded_grads):
+    jrec, prec = recorded_grads
+    state, frames, settings, lrs, weights = (_flat_scene() if mode == "final"
+                                             else _scene())
+    js, jr, pst, pr, rows, opt = _run(mode, state, frames, settings, lrs, weights)
+    assert sorted(jrec) == sorted(prec) == list(range(ITERS))
+
+    # iteration 0: the same gradients
+    _grads_held_as_jax(jrec, prec, len(rows))
+    losses = ("total_loss", "color_loss", "depth_loss", "scale_loss") + (
+        ("ssim_loss",) if mode == "final" else ())
+    for k in losses:
+        got, ref = pr[k].numpy(), np.asarray(jr[k])
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-5, err_msg=k)
+        np.testing.assert_allclose(got, ref, rtol=1e-2, atol=1e-7, err_msg=k)
+
+    # the maps after the scan
+    g = map_state_to_numpy(pst)
+    r = {k: np.asarray(v) for k, v in js._asdict().items()}
+    _held_as_jax(state, g, r, jrec, rows, opt)
 
     # ... and as the port renders them
     pset = RenderSettings(width=settings.width, height=settings.height)
@@ -178,3 +219,45 @@ def test_port_keyframe_scan_matches_its_full_scan():
     np.testing.assert_allclose(s_cmp.confidence.numpy(),
                                s_full.confidence.numpy(), atol=1e-5)
     assert rep["iters"] == 6 and rep["bg_renders"] == 0
+
+
+def test_final_pass_matches_jax(tmp_path, recorded_grads):
+    """Both packages' `Mapping.global_optimization(is_end=True)` from the
+    same map and keyframes (the scene's two frames), `final_global_iter`
+    2: the unstable rows promoted first, the same unpinned schedule drawn,
+    4 steps, and the rows held as in `test_scan_matches_jax`."""
+    from dqo_map_tpu.config import default_config as jax_default_config
+    from dqo_map_tpu_torch.config import default_config
+    jrec, prec = recorded_grads
+    state, frames, settings, _, _ = _flat_scene()
+    W, H = settings.width, settings.height
+    cfg = dict(save_path=str(tmp_path), final_global_iter=2, capacity=512)
+    jm = jmapper.Mapping(jax_default_config(**cfg), W, H)
+    pm = mapper.Mapping(default_config(**cfg), W, H, "cpu")
+    pf = port_frames(frames)
+    for f in range(2):
+        jcam = {k: frames[k][f] for k in ("w2c", "full_proj", "cam_pos")}
+        jcam.update({k: frames[k] for k in ("K", "tan_fovx", "tan_fovy")})
+        jm.keyframes.append((None, jcam, {k: frames[k][f] for k in
+                                          ("color", "depth", "normal")}))
+        pm.keyframes.append((None, mapper._frame_cam(pf, f),
+                             {k: pf[k][f] for k in ("color", "depth", "normal")}))
+    jm.state, pm.state = state, port_state(state)
+    jm.global_optimization(is_end=True)
+    pm.global_optimization(is_end=True)
+
+    iters = 2 * 2
+    assert sorted(jrec) == sorted(prec) == list(range(iters))
+    assert pm.scan_counts["final"] == 1 and pm.scan_counts["iters"] == iters
+    assert pm.scan_counts["range_renders"] == 2
+    assert (pm._host_rng.bit_generator.state
+            == jm._host_rng.bit_generator.state)
+    kind, curve = pm.scan_log[-1]
+    assert kind == "final" and curve.shape == (iters,)
+    n = int(state.count)
+    _grads_held_as_jax(jrec, prec, n)
+    g = map_state_to_numpy(pm.state)
+    r = {k: np.asarray(v) for k, v in jm.state._asdict().items()}
+    assert (g["status"][:n] != jgm.UNSTABLE).all()      # every row promoted
+    _held_as_jax(jmapper.gaussians_fix(state, -1.0), g, r, jrec,
+                 np.arange(n), g["status"][:n] == jgm.STABLE)
