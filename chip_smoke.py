@@ -7,58 +7,71 @@ against their plain PyTorch versions.
 
 1. Builds the two blend kernels, K1 forward (`dqo_map_tpu_torch/csrc/
    blend_fwd.cu`) and K2 backward (`csrc/blend_bwd.cu`), with nvcc for
-   sm_90a, one nvcc per source, both started together.
-2. Runs the port's main path, `SLAMSystem.run()`, over synthetic RGB-D
-   frames at the benchmark's Replica office0 scale: 1200x680, 40,800
-   samples a frame, map capacity 2^19, ICP tracking on every frame, and
+   sm_90a, one nvcc per source, both started together; then the feature
+   pose backend (`runtime/orb_backend.cc`) with g++ into
+   `dqo_map_tpu_torch/_build/`.
+2. Runs the port's main path, `SLAMSystem.run()`, in bench.py's
+   configuration (bench.py:73-116) over synthetic RGB-D frames with
+   detections at the benchmark's Replica office0 scale: 1200x680, 40,800
+   samples a frame, map capacity 2^19, ICP fused with the feature backend
+   on every frame (full resolution, hard keyframe override), the
+   dual-quadric object layer (MODE=1), loose sync every 6 frames, and
    bench.py's 50 masked Adam steps on every 6th frame: the local scan
    (unstable Gaussians in front of the stable background) or, on a
-   keyframe, the keyframe scan; an evaluation at the first and the last
-   frame; then the final whole-history pass (`final_global_iter` steps per
-   keyframe over every keyframe, whole, with SSIM), the final evaluation,
-   and the trajectory, PLY map and `performance.json` under
-   `chiprun_out/run/`. The per-frame records come from a wrapper of
-   `system.step`, the final pass's from a wrapper of
-   `Mapping.global_optimization`. Where the frames give no keyframe, a
-   second path runs the keyframe scan on the final map, as the next
-   keyframe would; its launches are reported apart from the main path's.
-   Each path zeroes the kernels' launch counters just before and reads
-   them just after: K1 (both variants) must have launched once per model
-   render (the evaluation renders included), scan iteration,
-   stable-background render and keyframe range render, K2 (both variants)
-   once per scan iteration; each per-frame scan's objective must have
-   fallen over its second half, the final pass must have run
-   len(keyframes) x final_global_iter iterations, and its objective summed
-   over every keyframe must have fallen from before the pass to after it
-   (both sums under no_grad, their own K1 launches taken out of the
-   counts).
+   keyframe, the keyframe scan, then the objects' refinement; an
+   evaluation at the first and the last frame; then the final
+   whole-history pass (`final_global_iter` steps per keyframe over every
+   keyframe, whole, with SSIM), the final evaluation, the trajectory, PLY
+   map, `save_obj/` (objects and IoU), the instance and semantic colour
+   passes and `performance.json` under `chiprun_out/run/`. The per-frame
+   records come from a wrapper of `system.step`, the final pass's from a
+   wrapper of `Mapping.global_optimization`, the colour passes' from one
+   of `SLAMSystem.save_object_passes`, the backend's and the objects' host
+   times from wrappers of `detect`, `track` and `optimize_objects`. Frames
+   3-11 are the timed window, synchronised with the card at both ends.
+   Where the frames give no keyframe, a second path runs the keyframe scan
+   on the final map, as the next keyframe would; its launches are
+   reported apart from the main path's. Each path zeroes the kernels'
+   launch counters just before and reads them just after: K1 (both
+   variants) must have launched once per model render (the evaluation
+   renders included), scan iteration, stable-background render, keyframe
+   range render and colour pass, K2 (both variants) once per scan
+   iteration; each per-frame scan's objective must have fallen over its
+   second half, the final pass must have run len(keyframes) x
+   final_global_iter iterations, and its objective summed over every
+   keyframe must have fallen from before the pass to after it (both sums
+   under no_grad, their own K1 launches taken out of the counts).
 3. Holds each kernel against its plain version at the main path's shapes
    and times both: K1 on the final map at the last camera, K1's
    background variant and K2's background variant on the last local
    scan's last iteration, K2's plain variant on the last keyframe scan's
-   last iteration, and K1 and K2 on the final pass's last iteration
+   last iteration, K1 and K2 on the final pass's last iteration
    (`blend_fwd_final`, `blend_bwd_final`: every tile live, SSIM's dense
-   colour cotangent). K1: index maps and n_touched exactly, float maps to
-   1e-5 (depth 1e-4). K2: each gradient row to 1e-4 of its largest
-   magnitude (the CTA sums over the tile's pixels in another order), and
-   the zero structure equal but at a few places of float32 cancellation
-   (see `check_bwd`). A kernel's `ms` is its own device time per launch
-   (the profiler's, `device_ms`), `wrapper_ms` the CUDA-event time of a
-   whole wrapper call; for each kernel also the time with its tiles
-   launched in tile order instead of the binning's `tile_order` (most
-   entries first), and the most crowded tile's alone. Each row carries the
-   live entries per non-empty tile of its call (`tile_entries`). Every
-   recorded call must have come with the binning's `tile_order`.
-4. Checks the output: finite maps, every frame tracked, the render close
-   to the frame, PSNR, depth-L1 and ATE before and after the final pass,
+   colour cotangent), and K1 at the colour-pass call site
+   (`blend_fwd_colorpass`: the instance pass on the final map at the last
+   camera, the object ids' palette colours in place of the SH colours).
+   K1: index maps and n_touched exactly, float maps to 1e-5 (depth 1e-4).
+   K2: each gradient row to 1e-4 of its largest magnitude (the CTA sums
+   over the tile's pixels in another order), and the zero structure equal
+   but at a few places of float32 cancellation (see `check_bwd`). A
+   kernel's `ms` is its own device time per launch (the profiler's,
+   `device_ms`), `wrapper_ms` the CUDA-event time of a whole wrapper call;
+   for each kernel also the time with its tiles launched in tile order
+   instead of the binning's `tile_order` (most entries first), and the
+   most crowded tile's alone. Each row carries the live entries per
+   non-empty tile of its call (`tile_entries`). Every recorded call must
+   have come with the binning's `tile_order`.
+4. Checks the output: finite maps, every frame tracked with a known pose
+   source, the render close to the frame, PSNR, depth-L1 and ATE before
+   and after the final pass, at least one object, refined, with its IoU,
    and the files `run()` wrote.
 5. Reloads the saved `_merge.ply` and renders it at the last camera
    against the saved state (colour to 1e-5, depth to 1e-4); saves a
-   checkpoint and resumes it into a fresh system (map, keyframes, poses
-   and time equal, the render at the last camera bit-equal); runs the
-   `run_slam` CLI on a 6-frame Synthetic config at 160x120 as a
-   subprocess, which must exit 0 and write `result.json` with the
-   reference CLI's keys.
+   checkpoint and resumes it into a fresh system (map, keyframes, poses,
+   time and object layer equal, the render at the last camera bit-equal);
+   runs the `run_slam` CLI on 6 frames of `configs/synthetic/room.yaml`
+   (object layer on) as a subprocess, which must exit 0 and write
+   `result.json` with the reference CLI's keys.
 
 With `--profile N` the last N frames of step 2 run under `torch.profiler`:
 it prints the device time by kernel and the device's busy share of that
@@ -66,11 +79,13 @@ window, and writes the trace to `chiprun_out/slice_trace.json`; so do
 five iterations of the final pass (its 2nd to 6th), to
 `chiprun_out/final_pass_trace.json`.
 
-Prints the card, per-frame times (optimize frames apart), map and entry
-counts, PSNR, depth-L1 and ATE at the last frame, the final pass's
-counts, times and quality, then one JSON line of kernel numbers and,
-last, the JSON result line. Exits non-zero, before printing a result,
-without a CUDA card or when any check fails.
+Prints the card, per-frame times (host times on the frames that do not
+sync), the timed window, the backend's and the objects' numbers, map and
+entry counts, PSNR, depth-L1 and ATE at the last frame, the final pass's
+counts, times and quality, each report line with the card's name and
+power limit, then one JSON line of kernel numbers and, last, the JSON
+result line. Exits non-zero, before printing a result, without a CUDA
+card or when any check fails.
 """
 
 import argparse
@@ -99,6 +114,8 @@ MAX_FLIPS = 32
 FLIP_TOL = 1e-6
 KERNELS = ("blend_fwd", "blend_fwd_bg", "blend_bwd", "blend_bwd_bg")
 FINAL_ROWS = ("blend_fwd_final", "blend_bwd_final")
+COLOR_PASSES = 2              # the instance and the semantic pass of run()
+POSE_SOURCES = ("keyframe", "features", "icp", "hold")
 REPLACES = {
     "blend_fwd": "dqo_map_tpu/ops/blend_pallas.py:179",
     "blend_fwd_bg": "dqo_map_tpu/ops/blend_pallas.py:220",
@@ -106,14 +123,16 @@ REPLACES = {
     "blend_bwd_bg": "dqo_map_tpu/ops/blend_pallas.py:366",
     "blend_fwd_final": "dqo_map_tpu/ops/blend_pallas.py:179",
     "blend_bwd_final": "dqo_map_tpu/ops/blend_pallas.py:366",
+    "blend_fwd_colorpass": "dqo_map_tpu/ops/blend_pallas.py:179",
 }
 RUN_DIR = os.path.join("chiprun_out", "run")
 CLI_DIR = os.path.join("chiprun_out", "cli")
 # the keys of the reference CLI's result.json (`dqo_map_tpu/cli/run_slam.py`
-# over `SLAMSystem.run`, without the object layer)
+# over `SLAMSystem.run`, with the object layer's receipts)
 RESULT_KEYS = {"psnr", "ssim", "ms_ssim", "color_l1", "depth_l1_cm",
                "valid_ratio", "lpips", "lpips_note", "ate_cm", "fps",
-               "max_mem_GB", "mean_tracking_s", "mean_mapping_s"}
+               "max_mem_GB", "mean_tracking_s", "mean_mapping_s",
+               "n_objects", "obj_obs_trimmed", "obj_over_cap"}
 
 
 def card_line() -> str:
@@ -125,17 +144,20 @@ def card_line() -> str:
 
 def slice_config(save_path: str = RUN_DIR):
     from dqo_map_tpu_torch.config import default_config
-    # bench.py's workload, with the feature backend and object layer (not
-    # ported) off
+    # bench.py's workload (bench.py:73-116): the object layer, the feature
+    # backend at full resolution with the hard keyframe override, loose
+    # sync every 6 frames
     return default_config(
-        type="Synthetic", save_path=save_path, use_object=False,
+        type="Synthetic", save_path=save_path, use_object=True,
         use_gt_pose=False,
-        icp_use_model_depth=False, use_orb_backend=False,
+        icp_use_model_depth=False, use_orb_backend=True, orb_downsample=1,
+        orb_kf_gain=1.0,
         capacity=1 << 19, add_capacity=16384,
         uniform_sample_num=40800, gaussian_update_frame=6,
         gaussian_update_iter=ADAM_STEPS, stable_confidence_thres=20,
         global_keyframe_num=3, min_depth=0.1, max_depth=8.0,
-        memory_length=5)
+        memory_length=5, sync_tracker2mapper_method="loose",
+        sync_tracker2mapper_frames=6)
 
 
 class Recorder:
@@ -184,17 +206,18 @@ def reset_launches():
 
 
 def check_launches(what: str, got: dict, scans0: dict, scans1: dict,
-                   renders: int):
-    """K1 once per model render, scan iteration, background render and
-    range render; K2 once per scan iteration."""
+                   renders: int, color_passes: int = 0):
+    """K1 once per model render, scan iteration, background render, range
+    render and colour pass; K2 once per scan iteration."""
     d = {k: scans1[k] - scans0[k] for k in scans1}
-    want_fwd = renders + d["iters"] + d["bg_renders"] + d["range_renders"]
+    want_fwd = (renders + d["iters"] + d["bg_renders"] + d["range_renders"]
+                + color_passes)
     fwd = got["blend_fwd"] + got["blend_fwd_bg"]
     bwd = got["blend_bwd"] + got["blend_bwd_bg"]
     print(f"{what}: launches {got}; model renders {renders}, scans "
           f"local {d['local']} keyframe {d['global']} final {d['final']}, "
           f"iterations {d['iters']}, background renders {d['bg_renders']}, "
-          f"range renders {d['range_renders']}")
+          f"range renders {d['range_renders']}, colour passes {color_passes}")
     if fwd != want_fwd or bwd != d["iters"]:
         raise RuntimeError(f"{what}: K1 launched {fwd} times for {want_fwd} "
                            f"blends, K2 {bwd} times for {d['iters']} "
@@ -365,50 +388,84 @@ def timed(obj, name: str, log: dict):
     setattr(obj, name, wrapper)
 
 
+class ColorPasses:
+    """Wraps `SLAMSystem.save_object_passes`: the kernel launches of the
+    instance and semantic passes (the recorder keeps none of them), and
+    their wall time."""
+
+    def __init__(self, system, rec):
+        self.system, self.rec = system, rec
+        self.inner = system.save_object_passes
+        self.launches, self.seconds = None, None
+
+    def __call__(self, frame):
+        import torch
+        phase, self.rec.phase = self.rec.phase, None
+        launches0 = launches_now()
+        t0 = time.perf_counter()
+        try:
+            return self.inner(frame)
+        finally:
+            torch.cuda.synchronize()
+            self.seconds = time.perf_counter() - t0
+            self.rec.phase = phase
+            after = launches_now()
+            self.launches = {k: after[k] - launches0[k] for k in after}
+
+
 def run_main_path(args, device, rec):
     """`SLAMSystem.run()` over `args.frames` frames. Returns (system,
     cameras, per-frame infos, the final pass's `FinalPass.info`, the run's
     result, the seconds of its evaluations and exports, launches,
-    seconds)."""
+    seconds, the timed window, the host-side logs, the colour passes)."""
     import torch
     from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
     from dqo_map_tpu_torch.slam.system import SLAMSystem
 
     t0 = time.perf_counter()
     _, cams = synthetic_sequence(args.frames, width=args.width,
-                                 height=args.height)
+                                 height=args.height, with_detections=True)
     print(f"frames: {args.frames} at {args.width}x{args.height}, made in "
           f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     system = SLAMSystem(slice_config(), cameras=cams, device=device)
     m = system.mapping
+    backend = system.tracker.pose_backend
     infos = []
     prof = None
+    window = {}
     inner_step = system.step
 
     def step(cam, i):
         nonlocal prof
         if i == args.frames - args.profile:
             prof = start_profile()
+        if i == WARMUP_FRAMES:
+            torch.cuda.synchronize(device)
+            window["t0"] = time.perf_counter()
         info = inner_step(cam, i)
+        if i == args.frames - 1:
+            torch.cuda.synchronize(device)
+            window["t1"] = time.perf_counter()
         info["optimized"] = m.did_optimize
+        info["source"] = backend.source_last
         infos.append(info)
         if prof is not None and i == args.frames - 1:
             prof.__exit__(None, None, None)
-        u, st = m.counts()
-        print(f"frame {i:3d}: tracking {1e3 * info['tracker_s']:8.1f} ms  "
-              f"mapping {1e3 * info['mapper_s']:8.1f} ms  alive {u + st}"
-              f"  stable {st}  entries {info['render']['num_entries']}"
-              + ("  (optimize)" if m.did_optimize else ""))
         return info
 
     system.step = step
     final = FinalPass(system, rec, profile=args.profile > 0)
     m.global_optimization = final
-    tail = {}
+    passes = ColorPasses(system, rec)
+    system.save_object_passes = passes
+    tail, host = {}, {}
     for obj, name in ((system, "_eval"), (system.tracker, "save_traj"),
                       (m, "save_model")):
         timed(obj, name, tail)
+    for obj, name in ((backend, "detect"), (backend, "track"),
+                      (system.object_layer, "optimize_objects")):
+        timed(obj, name, host)
     scans0 = dict(m.scan_counts)
     reset_launches()
     t0 = time.perf_counter()
@@ -419,7 +476,16 @@ def run_main_path(args, device, rec):
     launches = launches_now()
     del system.step, m.global_optimization      # the wrappers
     del system._eval, system.tracker.save_traj, m.save_model
-    check_launches("main path", launches, scans0, m.scan_counts, m.renders)
+    del system.save_object_passes, backend.detect, backend.track
+    del system.object_layer.optimize_objects
+    if passes.launches is None:
+        raise RuntimeError("run() ran no colour pass")
+    if passes.launches["blend_fwd"] != COLOR_PASSES or \
+            sum(passes.launches.values()) != COLOR_PASSES:
+        raise RuntimeError(f"the colour passes launched {passes.launches}, "
+                           f"wanted K1 {COLOR_PASSES} times")
+    check_launches("main path", launches, scans0, m.scan_counts, m.renders,
+                   COLOR_PASSES)
     check_scans_fall(m, 0)
     if final.info is None:
         raise RuntimeError("run() ran no final pass")
@@ -430,7 +496,8 @@ def run_main_path(args, device, rec):
     if "profile" in final.info:
         report_profile(*final.info.pop("profile"), "final-pass iteration",
                        "final_pass_trace.json")
-    return system, cams, infos, final.info, result, tail, launches, seconds
+    return (system, cams, infos, final.info, result, tail, launches, seconds,
+            window, host, passes)
 
 
 def keyframe_phase(system, device, rec) -> dict:
@@ -699,28 +766,80 @@ def check_bwd(name, args, kw, launches, layout) -> dict:
                            tile_entries(args[2], *layout)), **order_ms)
 
 
-def report_times(infos, final: dict, tail: dict, seconds: float):
-    """Per-frame times (optimize frames apart, after warm-up) and where the
-    whole run's time went."""
+def report_times(system, infos, final: dict, tail: dict, seconds: float,
+                 window: dict, passes, card: str):
+    """Per-frame times (optimize frames apart, after warm-up), the timed
+    window's wall time, and where the whole run's time went. Under loose
+    sync a frame's times are the host's (the time to queue its work and to
+    wait for what it reads back) but on the frames that end in a sync."""
+    for i, info in enumerate(infos):
+        synced = system._frame_syncs(i)
+        print(f"frame {i:3d}: tracking {1e3 * info['tracker_s']:8.1f} ms  "
+              f"mapping {1e3 * info['mapper_s']:8.1f} ms  "
+              f"({'device, synced' if synced else 'host'})  pose "
+              f"{info['source']}  entries {info['render']['num_entries']}"
+              + ("  (optimize)" if info["optimized"] else ""))
+    n_win = len(infos) - WARMUP_FRAMES
+    win = window["t1"] - window["t0"]
+    print(f"timed window, frames {WARMUP_FRAMES}-{len(infos) - 1} "
+          f"({system.sync_method} sync every {system.sync_frames} frames), "
+          f"synchronised at both ends: {1e3 * win:.1f} ms wall, "
+          f"{1e3 * win / n_win:.1f} ms a frame; the frames' own host times "
+          f"sum to {1e3 * sum(i['tracker_s'] + i['mapper_s'] for i in infos[WARMUP_FRAMES:]):.1f} ms"
+          f" [{card}]")
     for label, sel in (("optimize frames", True), ("other frames", False)):
         part = [i for i in infos[WARMUP_FRAMES:] if i["optimized"] == sel] \
             or [i for i in infos if i["optimized"] == sel]
         if part:
             tr = 1e3 * sum(i["tracker_s"] for i in part) / len(part)
             mp = 1e3 * sum(i["mapper_s"] for i in part) / len(part)
-            print(f"per frame, {label} ({len(part)}): tracking {tr:.1f} ms, "
-                  f"mapping {mp:.1f} ms, total {tr + mp:.1f} ms")
+            print(f"per frame (host clock), {label} ({len(part)}): tracking "
+                  f"{tr:.1f} ms, mapping {mp:.1f} ms, total {tr + mp:.1f} ms")
     frames_s = sum(i["tracker_s"] + i["mapper_s"] for i in infos)
     parts = {"frames": frames_s, "final pass": final["seconds"],
              f"evaluations ({len(tail['_eval'])})": sum(tail["_eval"]),
              "trajectory": sum(tail["save_traj"]),
              "PLY export": sum(tail["save_model"]),
+             "colour passes": passes.seconds,
              "the final pass's objective sums and masks (this script's)":
                  final["uncounted_s"]}
     print(f"whole run {seconds:.2f} s: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in parts.items())
         + f", the rest {seconds - sum(parts.values()):.3f} s; evaluations "
         + " / ".join(f"{x:.3f}" for x in tail["_eval"]) + " s")
+
+
+def report_tracking_objects(system, infos, host: dict, result: dict,
+                            card: str):
+    """The feature backend's host time a frame in `detect` and `track`, the
+    pose sources, keyframes and loop closures; the objects, their capacity
+    receipts, mean projected-box IoU and the time of each refinement."""
+    import numpy as np
+    be = system.tracker.pose_backend
+    for name in ("detect", "track"):
+        t = host.get(name, [])
+        print(f"feature backend {name}: {len(t)} calls, host "
+              f"{1e3 * float(np.mean(t)):.1f} ms a call (min "
+              f"{1e3 * min(t):.1f}, max {1e3 * max(t):.1f}) [{card}]")
+    sources = [i["source"] for i in infos[1:]]
+    counts = {k: sources.count(k) for k in POSE_SOURCES}
+    print(f"pose sources over frames 1-{len(infos) - 1}: {counts}; backend "
+          f"keyframes {be.num_keyframes()}, loop closures {be.loop_closures}, "
+          f"landmarks {be.num_mappoints()} [{card}]")
+    if sum(counts.values()) != len(sources) or infos[0]["source"] != "init":
+        raise RuntimeError(f"pose sources {[i['source'] for i in infos]}")
+    layer = system.object_layer
+    ious = list(layer.iou_log.values())
+    opt = host.get("optimize_objects", [])
+    print(f"objects: n_objects {result['n_objects']}, obj_obs_trimmed "
+          f"{result['obj_obs_trimmed']}, obj_over_cap {result['obj_over_cap']}"
+          f", mean record_iou {float(np.mean(ious)) if ious else 0.0:.4f} "
+          f"over {len(ious)}; optimize_objects {len(opt)} calls, "
+          + " / ".join(f"{1e3 * t:.1f}" for t in opt) + f" ms [{card}]")
+    if not (result["n_objects"] >= 1 and opt and ious):
+        raise RuntimeError(f"the object layer made {result['n_objects']} "
+                           f"objects and {len(opt)} refinements")
+    print(f"ATE at frame {len(infos) - 1}: {result['ate_cm']:.4f} cm [{card}]")
 
 
 def report_final(system, final: dict, result: dict):
@@ -775,9 +894,17 @@ def check_outputs(system) -> str:
         "pose_es.npy", "pose_gt.npy", "poses.txt", "ate.txt")]
     want += [base + "_stable.ply", base + "_merge.ply",
              os.path.join(RUN_DIR, "performance.json"),
-             os.path.join(RUN_DIR, "eval_render", "color_compare.png"),
-             os.path.join(RUN_DIR, "eval_render", "depth_compare.png")]
+             os.path.join(RUN_DIR, "save_obj", "objects.txt"),
+             os.path.join(RUN_DIR, "save_obj", "iou.txt")]
+    want += [os.path.join(RUN_DIR, "eval_render", f"{k}.png") for k in (
+        "color_compare", "depth_compare", "instance", "semantic")]
     missing = [f for f in want if not os.path.isfile(f)]
+    if not missing:
+        with open(os.path.join(RUN_DIR, "save_obj", "objects.txt")) as f:
+            n_lines = len(f.read().splitlines())
+        if n_lines != len(system.object_layer.objects):
+            missing.append(f"objects.txt with {len(system.object_layer.objects)}"
+                           f" lines (has {n_lines})")
     # the unstable PLY is written only for a non-empty subset, and the
     # final pass promotes every unstable Gaussian
     has_unstable = int((m.state.status == gm.UNSTABLE).sum()) > 0
@@ -800,14 +927,14 @@ def _render(state, cin, settings):
         return render_state(state, cin, settings, "global")
 
 
-def ply_round_trip(system, cin, merge_ply: str):
+def ply_round_trip(system, state, cin, merge_ply: str):
     """The saved merged PLY, reloaded and rendered at the last camera,
-    against the render of the saved state: colour to 1e-5, depth to
+    against the render of the saved `state`: colour to 1e-5, depth to
     1e-4."""
     from dqo_map_tpu_torch.utils.ply import load_map_ply
     m = system.mapping
-    loaded = load_map_ply(merge_ply, m.state.capacity, device=m.device)
-    a, b = _render(m.state, cin, m.settings), _render(loaded, cin, m.settings)
+    loaded = load_map_ply(merge_ply, state.capacity, device=m.device)
+    a, b = _render(state, cin, m.settings), _render(loaded, cin, m.settings)
     errs = {k: float((a[k] - b[k]).abs().max()) for k in ("render", "depth")}
     print(f"PLY round trip: {loaded.count} Gaussians reloaded; render at the "
           f"last camera off by {errs['render']:.3g} (colour), "
@@ -816,10 +943,24 @@ def ply_round_trip(system, cin, merge_ply: str):
         raise RuntimeError(f"PLY round trip off: {errs}")
 
 
+def same(a, b) -> bool:
+    """Deep equality of nested dicts, lists and numpy arrays."""
+    import numpy as np
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
 def checkpoint_round_trip(system, cams, cin, device):
     """`save_checkpoint`, then `resume` into a fresh system: map fields,
-    keyframe ids, poses and time equal, the render at the last camera
-    bit-equal. The checkpoint (the memory frames' maps, some 100 MB a
+    keyframe ids, poses, time and the object layer equal, the render at the
+    last camera bit-equal. The checkpoint (the memory frames' maps, some 100 MB a
     frame at this width) is deleted after."""
     import numpy as np
     import torch
@@ -846,12 +987,16 @@ def checkpoint_round_trip(system, cams, cin, device):
     if not all(np.array_equal(p, q) for p, q in
                zip(system.tracker.poses_np(), fresh.tracker.poses_np())):
         bad.append("poses")
+    if not same(system.object_layer.state_dict(),
+                fresh.object_layer.state_dict()):
+        bad.append("object layer")
     ra, rb = _render(a.state, cin, a.settings), _render(b.state, cin, b.settings)
     bad += [f"render {k}" for k in ("render", "depth", "depth_index_map",
                                     "T_map") if not torch.equal(ra[k], rb[k])]
     print(f"checkpoint round trip: {size / 1e6:.1f} MB written in "
           f"{t1 - t0:.1f} s, resumed in {t2 - t1:.1f} s at frame {nxt}; "
-          + ("map, keyframes, poses, time and render equal" if not bad
+          + (f"map, keyframes, poses, time, the {len(fresh.object_layer.objects)}"
+             " objects and render equal" if not bad
              else f"differ: {bad}"))
     if bad:
         raise RuntimeError(f"checkpoint round trip differs in {bad}")
@@ -859,15 +1004,15 @@ def checkpoint_round_trip(system, cams, cin, device):
 
 def cli_phase():
     """The `run_slam` CLI on the card, as a subprocess, on 6 frames of
-    `configs/synthetic/room.yaml` (the reader's 160x120) with the object
-    layer off."""
+    `configs/synthetic/room.yaml` as it is (the reader's 160x120, the
+    object layer on)."""
     os.makedirs(CLI_DIR, exist_ok=True)
     out = os.path.join(CLI_DIR, "run")
     shutil.rmtree(out, ignore_errors=True)
     cfg = os.path.join(CLI_DIR, "config.yaml")
     with open(cfg, "w") as f:
-        # the repo's synthetic room, without the object layer
-        f.write("parent: configs/synthetic/room.yaml\nuse_object: false\n"
+        # the repo's synthetic room, cut to 6 frames
+        f.write("parent: configs/synthetic/room.yaml\n"
                 f"frame_num: 6\nsave_path: {out}\n")
     cmd = [sys.executable, "-m", "dqo_map_tpu_torch.cli.run_slam", "--config",
            cfg, "--max-frames", "6", "--quiet"]
@@ -884,7 +1029,8 @@ def cli_phase():
                            f"{sorted(RESULT_KEYS)}")
     print(f"CLI: {' '.join(cmd)}: exit 0 in {seconds:.1f} s; result.json "
           f"PSNR {result['psnr']:.2f} dB, depth-L1 "
-          f"{result['depth_l1_cm']:.3f} cm, ATE {result['ate_cm']:.4f} cm")
+          f"{result['depth_l1_cm']:.3f} cm, ATE {result['ate_cm']:.4f} cm, "
+          f"{result['n_objects']} objects")
 
 
 def main(argv=None) -> int:
@@ -907,15 +1053,24 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     from dqo_map_tpu_torch.ops.blend_cuda import build_libraries
+    from dqo_map_tpu_torch.slam.pose_backend import build_library
     t0 = time.perf_counter()
     libs = build_libraries(verbose=True)
     print(f"built {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lib = build_library()
+    print(f"built the feature backend {lib.name} with g++ in "
+          f"{time.perf_counter() - t0:.1f} s; {card_line()}")
 
     rec = Recorder()
-    system, cams, infos, final, result, tail, launches, seconds = run_main_path(
-        args, device, rec)
+    (system, cams, infos, final, result, tail, launches, seconds, window,
+     host, passes) = run_main_path(args, device, rec)
     m = system.mapping
+    # the map `run()` ended with, which the keyframe path below may change
+    from dqo_map_tpu_torch.models.gaussian_map import FIELDS
+    final_state = m.state.replace(**{f: getattr(m.state, f).clone()
+                                     for f in FIELDS})
     extra = (keyframe_phase(system, device, rec)
              if m.scan_counts["global"] == 0 else None)
     print(f"scans run: local {m.scan_counts['local']}, keyframe "
@@ -928,7 +1083,9 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{k} was never launched on the main path "
                                "or the keyframe path")
 
-    report_times(infos, final, tail, seconds)
+    card = card_line()
+    report_times(system, infos, final, tail, seconds, window, passes, card)
+    report_tracking_objects(system, infos, host, result, card)
     u, st = m.counts()
     rec_ = m.receipts
     print(f"alive gaussians {u + st} (stable {st}); live entries last render "
@@ -951,7 +1108,7 @@ def main(argv=None) -> int:
     cin = cams[-1].render_inputs(device)
     with torch.no_grad():
         _, b, feats = blend_inputs(cam=cin, settings=s,
-                                   **state_render_args(m.state, cin, s))
+                                   **state_render_args(final_state, cin, s))
     T = b.tile_offsets.shape[0] - 1
     fwd_args = (feats, b.tile_offsets, b.tile_counts, T, s.tile_size,
                 s.width, cin["K"], blend_params(s), s.bg)
@@ -972,11 +1129,22 @@ def main(argv=None) -> int:
             rows.append(check(name, a, kw,
                               final_launches.get(name, launches.get(name)),
                               layout[name]))
+        # K1 at the colour-pass call site: the instance pass on the final
+        # map at the last camera, as `run()` made it
+        from dqo_map_tpu_torch.slam.renderer import palette_color
+        _, bc, fc = blend_inputs(cam=cin, settings=s, **state_render_args(
+            final_state, cin, s,
+            colors_precomp=palette_color(final_state.obj_id)))
+        rows.append(check_fwd(
+            "blend_fwd_colorpass",
+            (fc,) + (bc.tile_offsets, bc.tile_counts) + fwd_args[3:],
+            {"tile_order": bc.tile_order}, passes.launches["blend_fwd"],
+            layout["blend_fwd"]))
     if extra:
         for row in rows:
             row["keyframe_path_launches"] = extra.get(row["name"], 0)
 
-    ply_round_trip(system, cin, merge_ply)
+    ply_round_trip(system, final_state, cin, merge_ply)
     checkpoint_round_trip(system, cams, cin, device)
     cli_phase()
     print(card_line())

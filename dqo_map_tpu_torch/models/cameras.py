@@ -81,6 +81,11 @@ class Camera:
         return self.w2c[:3, 3]
 
     @property
+    def Rt(self) -> np.ndarray:
+        """(3,4) world -> camera [R|t], the object layer's projection pose."""
+        return self.w2c[:3, :4]
+
+    @property
     def camera_center(self) -> np.ndarray:
         return self.c2w[:3, 3]
 

@@ -32,7 +32,8 @@ parameters with those tile lists. The compact scans compute their loss on
 the kernels' tile rows, where the padded edge pixels are outside the
 render mask: the same masked means as in image space. With
 `gaussian_update_iter=0` no per-frame scan runs. `save_model` writes the
-map as PLY files. The semantic and instance losses are not ported.
+map as PLY files. `mapping` drives the object layer (MODE=1) where the
+run has one; the semantic and instance losses are not ported.
 """
 
 from __future__ import annotations
@@ -492,11 +493,14 @@ def densify_step(state: MapState, frame_map: dict, cam: dict, model_map: dict,
     idx = torch.cat([idx_a, idx_b])
     valid = torch.cat([val_a, val_b])
 
+    # with the object layer, each point takes the object index of its pixel
+    oid = (frame_map["obj_id_map"].reshape(-1)[idx]
+           if "obj_id_map" in frame_map else None)
     new = gm.make_new_points(
         frame_map["vertex_map_w"].reshape(-1, 3)[idx],
         frame_map["normal_map_w"].reshape(-1, 3)[idx],
         frame_map["color_map"].reshape(-1, 3)[idx], valid, time, frame_id,
-        init_opacity, (xf0, xf1, xf2))
+        init_opacity, (xf0, xf1, xf2), obj_id=oid)
 
     # coverage filter: drop points an unstable gaussian already covers (one
     # of its 3 nearest unstable neighbours within 0.6 x its radius). This
@@ -933,12 +937,22 @@ class Mapping:
             use_bg=False)
         self._count_scan("global", reports)
 
-    def mapping(self, frame: Camera, frame_map: dict, frame_id: int) -> bool:
+    def mapping(self, frame: Camera, frame_map: dict, frame_id: int,
+                object_layer=None) -> bool:
         """Per-frame mapping step up to, not including, the promote /
         error-remove / delete tail: the caller runs `finalize_frame` with
         the end-of-frame model render. On the optimize cadence it runs the
         local scan, or on a keyframe over a map with stable Gaussians the
-        keyframe scan."""
+        keyframe scan. With the object layer, the frame's detections are
+        associated first, the new Gaussians take the object index of their
+        pixel, and on a keyframe (and frame 0) the matched objects are
+        refined after the scan."""
+        if object_layer is not None:
+            if frame.detections is not None:
+                object_layer.process_frame(frame, frame_id)
+            frame_map["obj_id_map"] = torch.as_tensor(
+                object_layer.obj_id_image(frame.width, frame.height),
+                device=self.device)
         self.gaussians_add(frame, frame_map, frame_id)
         self.processed_frames.append((frame.render_inputs(self.device), frame_map))
         if len(self.processed_frames) > self.memory_length:
@@ -954,6 +968,8 @@ class Mapping:
                     self.local_optimize(frame)
                 else:
                     self.global_optimization(self.args.global_keyframe_num)
+            if object_layer is not None and (is_keyframe or frame_id == 0):
+                object_layer.optimize_objects()
         return is_keyframe
 
     def finalize_frame(self, out: dict, frame_map: dict):

@@ -6,6 +6,11 @@ Alive slots are packed below the `count` watermark, so a render takes the
 prefix [0:count]; dead slots inside it are culled by the valid mask. Slot
 ids in the index maps are therefore global. A render is differentiable in
 the state's parameter tensors.
+
+The colour passes (`render_color_pass`, `render_instance`,
+`render_semantic`) blend per-Gaussian colours given in place of the SH
+colours (`colors_precomp`) through the same rasterizer, so through K1,
+with the map's geometry detached.
 """
 
 from __future__ import annotations
@@ -29,6 +34,47 @@ class Renderer:
         return render_state(state, cam_inputs, self.settings, subset, tile_mask)
 
 
+def palette_color(ids: torch.Tensor) -> torch.Tensor:
+    """(P,) int ids -> (P,3) RGB in [0.15, 1] by a multiplicative hash of
+    the id's low 32 bits; an id < 0 is black."""
+    h = ((ids.long() & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    rgb = torch.stack([((h >> s) & 255).float() / 255.0 for s in (0, 8, 16)],
+                      dim=-1) * 0.85 + 0.15
+    return torch.where((ids >= 0)[:, None], rgb, 0.0)
+
+
+def render_color_pass(state: MapState, cam_inputs: dict,
+                      settings: RenderSettings,
+                      colors: torch.Tensor) -> torch.Tensor:
+    """The (H,W,3) blend of the per-Gaussian `colors` (capacity, 3) with the
+    whole map's geometry, which these passes never train (detached)."""
+    geometry = state.replace(**{f: getattr(state, f).detach() for f in (
+        "xyz", "scaling", "rotation", "opacity")})
+    return render_state(geometry, cam_inputs, settings,
+                        colors_precomp=colors)["render"]
+
+
+def render_instance(state: MapState, cam_inputs: dict,
+                    settings: RenderSettings) -> torch.Tensor:
+    """The object-instance image: each Gaussian's `obj_id` through the
+    palette."""
+    return render_color_pass(state, cam_inputs, settings,
+                             palette_color(state.obj_id))
+
+
+def render_semantic(state: MapState, cam_inputs: dict,
+                    settings: RenderSettings,
+                    categories: torch.Tensor) -> torch.Tensor:
+    """The semantic image: obj_id -> category (`categories`, the object
+    layer's (MAX_OBJECTS,) table) -> palette; Gaussians of no object are
+    black."""
+    n = categories.shape[0]
+    oid = state.obj_id
+    cat = torch.where((oid >= 0) & (oid < n),
+                      categories[torch.clamp(oid, 0, n - 1).long()], -1)
+    return render_color_pass(state, cam_inputs, settings, palette_color(cat))
+
+
 def subset_mask(state: MapState, subset: str) -> torch.Tensor:
     if subset == "global":
         return state.status != 0
@@ -48,13 +94,16 @@ def state_geometry(state: MapState, subset: str = "global"):
 
 
 def state_render_args(state: MapState, cam_inputs: dict,
-                      settings: RenderSettings, subset: str = "global") -> dict:
+                      settings: RenderSettings, subset: str = "global",
+                      colors_precomp: Optional[torch.Tensor] = None) -> dict:
     """The rasterizer's per-gaussian inputs for a MapState subset, over the
-    alive prefix [0:count]."""
+    alive prefix [0:count]; the colours from the SH, or `colors_precomp`
+    (capacity, 3) where given."""
     B = state.count
     xyz, scales, rots, valid = state_geometry(state, subset)
-    colors = eval_colors(state.sh[:B], xyz, cam_inputs["cam_pos"],
-                         settings.sh_degree)
+    colors = (colors_precomp[:B] if colors_precomp is not None else
+              eval_colors(state.sh[:B], xyz, cam_inputs["cam_pos"],
+                          settings.sh_degree))
     return dict(means3d=xyz, scales=scales, rots=rots,
                 opacities=torch.sigmoid(state.opacity[:B]), colors=colors,
                 valid_mask=valid)
@@ -84,14 +133,17 @@ def render_state(state: MapState, cam_inputs: dict, settings: RenderSettings,
                  tile_mask: Optional[torch.Tensor] = None,
                  with_n_touched: bool = False, binning=None,
                  bg_tiled: Optional[torch.Tensor] = None,
-                 tiled: bool = False) -> dict:
+                 tiled: bool = False,
+                 colors_precomp: Optional[torch.Tensor] = None) -> dict:
     """Render a MapState subset. `n_touched` comes back at full capacity
     (zeros unless asked for). `binning`, `bg_tiled` and `tiled` are those
-    of `rasterize`."""
+    of `rasterize`; `colors_precomp` (capacity, 3) replaces the SH
+    colours."""
     out = rasterize(cam=cam_inputs, settings=settings, tile_mask=tile_mask,
                     with_n_touched=with_n_touched, binning=binning,
                     bg_tiled=bg_tiled, tiled=tiled,
-                    **state_render_args(state, cam_inputs, settings, subset))
+                    **state_render_args(state, cam_inputs, settings, subset,
+                                        colors_precomp))
     n_touched = torch.zeros(state.capacity, dtype=torch.int32,
                             device=state.device)
     n_touched[:state.count] = out["n_touched"]

@@ -1,11 +1,16 @@
 """Frontend tracker: frame preprocessing and pose estimation (counterpart of
-`dqo_map_tpu/slam/tracker.py`, the ICP-only path).
+`dqo_map_tpu/slam/tracker.py`).
 
 Preprocessing builds the vertex / normal / confidence maps, the range and
 confidence masks and the ICP pyramids. With `async_pose` (set by
-SLAMSystem) the pose chain stays on the device: the ICP result is composed
-there, the frame adopts the device pose, and the failure check reads the
-PREVIOUS frame's residual, one frame late, so the host waits on nothing.
+SLAMSystem) and no feature backend the pose chain stays on the device: the
+ICP result is composed there, the frame adopts the device pose, and the
+failure check reads the PREVIOUS frame's residual, one frame late, so the
+host waits on nothing. With the feature backend (`use_orb_backend`,
+`pose_backend.py`) the pose is fused on the host: the backend's detection
+runs while the device still computes the ICP pose, then the pose and
+residual are read back once and fused, with the feature pose standing in
+where ICP failed.
 A failed frame's diagnostics are kept on the device and written at the end
 of the run (`flush_icp_failures`, called by `save_traj`), which also writes
 the trajectory files and the ATE.
@@ -26,6 +31,7 @@ from ..models.cameras import Camera
 from ..utils import image as im
 from ..utils.math3d import eval_ate
 from .icp import IcpConfig, icp_pyramid
+from .pose_backend import PoseBackend
 
 
 def preprocess_frame(depth: torch.Tensor, color: torch.Tensor, K: torch.Tensor,
@@ -108,10 +114,6 @@ def fuse_model_depth(render_depth, frame_depth, render_normal, frame_normal,
 
 class Tracker:
     def __init__(self, args, width: int, height: int, device="cuda"):
-        if getattr(args, "use_orb_backend", False):
-            raise NotImplementedError(
-                "the feature pose backend is not ported yet; "
-                "set use_orb_backend=False")
         self.device = torch.device(device)
         self.use_gt_pose = args.use_gt_pose
         self.icp_use_model_depth = args.icp_use_model_depth
@@ -146,6 +148,10 @@ class Tracker:
         self._pending_p2p = None
         self._last_pyr = None          # (vertex_pyr, normal_pyr) of frame t0
         self._curr_pyr = None
+        # the feature pose backend; its library is built here at first use
+        self.pose_backend = (PoseBackend(args)
+                             if getattr(args, "use_orb_backend", False)
+                             else None)
 
     # ------------------------------------------------------------------
     def map_preprocess(self, frame: Camera, frame_id: int) -> dict:
@@ -175,11 +181,15 @@ class Tracker:
             # first frame (or first after a resume): hold the last pose
             pose_t1_w = (self._pose_np(self.pose_es[-1]) if self.pose_es
                          else np.eye(4))
+            if self.pose_backend is not None:
+                # the feature tracker's reference frame
+                self.pose_backend.ingest(frame)
+                self.pose_backend.poses.append(pose_t1_w)
         else:
             vp0, np0 = self._last_pyr
             pose10, p2p, valid_ratio = icp_pyramid(
                 vp0, np0, *self._curr_pyr, self.K, self.icp_cfg)
-            if self.async_pose:
+            if self.async_pose and self.pose_backend is None:
                 # deferred failure check on the previous frame's residual
                 if self._pending_p2p is not None:
                     p_prev, vr_prev = self._pending_p2p.tolist()
@@ -197,14 +207,25 @@ class Tracker:
                 frame_map["normal_map_w"] = im.rotate_map(
                     frame_map["normal_map_c"], pose_dev)
                 return True
-            p2p, valid_ratio = float(p2p), float(valid_ratio)
+            if self.pose_backend is not None:
+                # the native detection needs no pose: it runs while the
+                # device still computes the ICP result
+                self.pose_backend.detect(frame)
+            # one readback of the pose and the residual
+            host = torch.cat([pose10.reshape(-1), p2p.reshape(1).float(),
+                              valid_ratio.reshape(1).float()]).cpu().numpy()
+            pose10 = host[:16].reshape(4, 4).astype(np.float64)
+            p2p, valid_ratio = float(host[16]), float(host[17])
             success = (p2p <= self.icp_cfg.fail_threshold
                        and valid_ratio >= self.icp_cfg.min_valid_ratio)
-            pose10 = pose10.cpu().numpy().astype(np.float64)
             if not success:
                 self.icp_fail_count += 1
                 self._dump_icp_failure(frame_map, p2p, pose10)
-            pose_t1_w = self._pose_np(self.pose_es[-1]) @ pose10
+            if self.pose_backend is not None:
+                # fusion, the feature pose standing in where ICP failed
+                pose_t1_w = self.pose_backend.track(frame, pose10, success)
+            else:
+                pose_t1_w = self._pose_np(self.pose_es[-1]) @ pose10
 
         self._last_pyr = self._curr_pyr
         self.pose_es.append(np.asarray(pose_t1_w, np.float64))

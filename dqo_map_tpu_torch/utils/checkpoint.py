@@ -4,9 +4,12 @@
 A checkpoint is `<path>.npz`, the map as `map_<field>` arrays (the JAX
 package's names, `map_count` included) and the mapper's generator state,
 plus `<path>.pkl`, the host bookkeeping: keyframes, memory frames, pose
-lists, the scans' schedule generator, the recorder's means and the metrics
-so far. Every tensor is copied to host numpy, so a checkpoint holds no
-device memory; `load_checkpoint` puts them back on the system's device.
+lists, the scans' schedule generator, the recorder's means, the metrics
+so far and the object layer (`ObjectLayer.state_dict`). The feature pose
+backend's native state is not kept: after a resume the tracker primes a
+fresh backend on the next frame, as after the first. Every tensor is
+copied to host numpy, so a checkpoint holds no device memory;
+`load_checkpoint` puts them back on the system's device.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models.gaussian_map import FIELDS, MapState
+from ..models.quadrics import ObjectLayer
 
 CKPT_VERSION = 1
 
@@ -72,6 +76,8 @@ def save_checkpoint(path: str, system) -> str:
         "recorder": (dict(system.recorder.means),
                      dict(system.recorder.counts)),
         "metrics_history": list(system.metrics_history),
+        "objects": (system.object_layer.state_dict()
+                    if system.object_layer is not None else None),
     }
     with open(path + ".pkl", "wb") as f:
         pickle.dump(host, f)
@@ -119,6 +125,10 @@ def load_checkpoint(path: str, system) -> int:
     system.recorder.means.update(means)
     system.recorder.counts.update(counts)
     system.metrics_history = list(host["metrics_history"])
+    if host.get("objects") is not None:
+        if system.object_layer is None:
+            system.object_layer = ObjectLayer(system.cfg, dev)
+        system.object_layer.load_state_dict(host["objects"])
     # the estimated poses back onto the cameras already consumed
     for fid, p in enumerate(t.pose_es):
         if fid < len(system.cameras):

@@ -5,7 +5,8 @@ whole frames with no tile mask, SSIM in the loss, no depth term) and
 `compact_optimize_scan` with `use_bg=False` (the keyframe scan) and
 `use_bg=True` (the default local scan), on `test_compact_opt.py`'s scene,
 carried across with `convert.py`; and both packages' final pass as
-`Mapping.global_optimization(is_end=True)` runs it. The JAX
+`Mapping.global_optimization(is_end=True)` runs it, with the depth-L1
+each package's own `eval_frame` reads before and after it. The JAX
 side blends with its plain `ref` implementation, the port with its plain
 versions (`blend_blocks_ref` / `blend_bwd_ref`).
 
@@ -261,3 +262,65 @@ def test_final_pass_matches_jax(tmp_path, recorded_grads):
     assert (g["status"][:n] != jgm.UNSTABLE).all()      # every row promoted
     _held_as_jax(jmapper.gaussians_fix(state, -1.0), g, r, jrec,
                  np.arange(n), g["status"][:n] == jgm.STABLE)
+
+
+def test_final_pass_depth_l1_moves_as_in_jax(tmp_path):
+    """Depth-L1 over the final pass, in both packages from one state: a map
+    the port built over 6 frames of the synthetic room at 64x48, carried
+    with its keyframes, poses and schedule generator into the JAX
+    package's `Mapping`, then each package's
+    `global_optimization(is_end=True)` and its own `eval_frame` at the last
+    frame before and after. The pass fits colour and SSIM only (no depth
+    term, positions fixed), and depth-L1 rises over it in the JAX package
+    as in the port, by the same amount: the rise the card showed at frame
+    11 is the reference's own behaviour."""
+    from dqo_map_tpu.config import default_config as jax_default_config
+    from dqo_map_tpu.data.synthetic import synthetic_sequence as jsequence
+    from dqo_map_tpu.eval.evaluate import eval_frame as jeval_frame
+    from dqo_map_tpu_torch.config import default_config
+    from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
+    from dqo_map_tpu_torch.eval.evaluate import eval_frame
+    from dqo_map_tpu_torch.slam.system import SLAMSystem
+    W, H, n = 64, 48, 6
+    run = dict(type="Synthetic", use_object=False, use_gt_pose=False,
+               capacity=16384, add_capacity=4096, uniform_sample_num=1500,
+               gaussian_update_frame=3, gaussian_update_iter=10,
+               final_global_iter=5, stable_confidence_thres=5, min_depth=0.1,
+               max_depth=8.0, memory_length=3, save_path=str(tmp_path))
+    _, pcams = synthetic_sequence(n, width=W, height=H)
+    _, jcams = jsequence(n, width=W, height=H)
+    system = SLAMSystem(default_config(**run), cameras=pcams, device="cpu")
+    for i in range(n):
+        system.step(pcams[i], i)
+        system.mapping.time += 1
+    pm = system.mapping
+    for jc, pc in zip(jcams, pcams):
+        pc.sync_pose()
+        jc.c2w = np.array(pc.c2w)
+    jm = jmapper.Mapping(jax_default_config(**run), W, H)
+    jm.state = jgm.MapState(**{k: jnp.asarray(v) for k, v in
+                               map_state_to_numpy(pm.state).items()})
+    jm.time = pm.time
+
+    def host(d):
+        return {k: jnp.asarray(v.numpy()) if torch.is_tensor(v) else v
+                for k, v in d.items()}
+
+    jm.keyframes = [(jcams[pcams.index(c)], host(cin), host(km))
+                    for c, cin, km in pm.keyframes]
+    jm.keyframe_ids = list(pm.keyframe_ids)
+    jm._host_rng.bit_generator.state = pm._host_rng.bit_generator.state
+    def depth_l1():
+        return (eval_frame(pm, pcams[-1], min_depth=0.1,
+                           max_depth=8.0)["depth_l1_cm"],
+                jeval_frame(jm, jcams[-1], min_depth=0.1,
+                            max_depth=8.0)["depth_l1_cm"])
+
+    p0, j0 = depth_l1()
+    pm.global_optimization(is_end=True)
+    jm.global_optimization(is_end=True)
+    p1, j1 = depth_l1()
+    assert pm.scan_counts["final"] == 1
+    assert abs(p0 - j0) <= 1e-4
+    assert j1 > j0 and p1 > p0            # the reference's own rise
+    assert abs((p1 - p0) - (j1 - j0)) <= 0.05 * (j1 - j0)
