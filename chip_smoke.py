@@ -5,6 +5,10 @@ against their plain PyTorch versions.
     python3 chip_smoke.py [--frames 12] [--width 1200] [--height 680]
                           [--profile N]
 
+Path A is the main path of `bench.py`'s configuration (steps 1-5), path B
+the semantic and instance supervision with the objects in MODE=0 (step
+6), then the evaluation CLIs on path B's output (step 7).
+
 1. Builds the two blend kernels, K1 forward (`dqo_map_tpu_torch/csrc/
    blend_fwd.cu`) and K2 backward (`csrc/blend_bwd.cu`), with nvcc for
    sm_90a, one nvcc per source, both started together; then the feature
@@ -72,6 +76,33 @@ against their plain PyTorch versions.
    runs the `run_slam` CLI on 6 frames of `configs/synthetic/room.yaml`
    (object layer on) as a subprocess, which must exit 0 and write
    `result.json` with the reference CLI's keys.
+6. Path B, beside path A (steps 2-5): `SLAMSystem.run()` over the same
+   12 frames in `semantic_config` (`slice_config` with
+   `configs/replica/office0_sem.yaml`'s semantic and instance terms, the
+   objects in MODE=0) into `chiprun_out/run_sem/`. Each frame carries a
+   semantic image, a class colour per wall and per ellipsoid of the room
+   found by the room's own ray cast (`paint_semantics`, which checks its
+   depth against the frame's bit for bit), and the same image as its
+   instance image. Its launches are counted from 0: K1 and K2 twice a
+   scan iteration (the colour and the semantic pass), K1 once more for
+   each memory frame's semantic background in a local scan, 20 of each
+   for every frame whose MODE=0 pass had objects, twice a final-pass
+   iteration. The scans' objectives must fall (less the instance term,
+   which no gradient reaches: the blend's T carries none), `sem_rgb` must
+   have moved from the class colours it was sampled with, the semantic
+   render must match the semantic image (mean error under 0.25 on the
+   covered pixels) and the objects must have been refined. K1 and K2 are
+   held against their plain versions there as in step 3, at the semantic
+   pass's background variants on the last local scan's last iteration
+   (`blend_fwd_sem`, `blend_bwd_sem`) and at the MODE=0 render of the
+   last frame's objects on its last iteration (`blend_fwd_obj`,
+   `blend_bwd_obj`).
+7. The evaluation phase on path B's output, on the card, under
+   `chiprun_out/eval/`: GT boxes and surface points written from the
+   room's ellipsoids and walls; `metric_obj` in box mode and per object,
+   `make_mesh` (TSDF fusion and marching tetrahedra along the run's
+   trajectory, scored against the room), `ablate_assoc` on the synthetic
+   sequence, and `per_object_mesh_eval` on the live map.
 
 With `--profile N` the last N frames of step 2 run under `torch.profiler`:
 it prints the device time by kernel and the device's busy share of that
@@ -82,10 +113,11 @@ five iterations of the final pass (its 2nd to 6th), to
 Prints the card, per-frame times (host times on the frames that do not
 sync), the timed window, the backend's and the objects' numbers, map and
 entry counts, PSNR, depth-L1 and ATE at the last frame, the final pass's
-counts, times and quality, each report line with the card's name and
-power limit, then one JSON line of kernel numbers and, last, the JSON
-result line. Exits non-zero, before printing a result, without a CUDA
-card or when any check fails.
+counts, times and quality, path B's counts and checks and the evaluation
+phase's numbers, each report line with the card's name and power limit,
+then one JSON line of kernel numbers (path A's rows, then path B's) and,
+last, the JSON result line. Exits non-zero, before printing a result,
+without a CUDA card or when any check fails.
 """
 
 import argparse
@@ -96,6 +128,8 @@ import shutil
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (data sheet)
 PEAK_F32_PER_S = 67e12        # H100 SXM FP32, outside the tensor cores
@@ -124,8 +158,23 @@ REPLACES = {
     "blend_fwd_final": "dqo_map_tpu/ops/blend_pallas.py:179",
     "blend_bwd_final": "dqo_map_tpu/ops/blend_pallas.py:366",
     "blend_fwd_colorpass": "dqo_map_tpu/ops/blend_pallas.py:179",
+    "blend_fwd_sem": "dqo_map_tpu/ops/blend_pallas.py:220",
+    "blend_bwd_sem": "dqo_map_tpu/ops/blend_pallas.py:366",
+    "blend_fwd_obj": "dqo_map_tpu/ops/blend_pallas.py:179",
+    "blend_bwd_obj": "dqo_map_tpu/ops/blend_pallas.py:366",
 }
+PATH_B_ROWS = ("blend_fwd_sem", "blend_bwd_sem", "blend_fwd_obj",
+               "blend_bwd_obj")
+# path B's semantic classes: the six walls of the synthetic room, then its
+# ellipsoids, one colour each
+CLASS_COLOURS = np.array([
+    [0.90, 0.10, 0.10], [0.10, 0.90, 0.10], [0.10, 0.10, 0.90],
+    [0.90, 0.90, 0.10], [0.90, 0.10, 0.90], [0.10, 0.90, 0.90],
+    [0.95, 0.55, 0.10], [0.55, 0.10, 0.95], [0.10, 0.55, 0.35],
+    [0.55, 0.55, 0.55]], np.float32)
 RUN_DIR = os.path.join("chiprun_out", "run")
+RUN_B_DIR = os.path.join("chiprun_out", "run_sem")
+EVAL_DIR = os.path.join("chiprun_out", "eval")
 CLI_DIR = os.path.join("chiprun_out", "cli")
 # the keys of the reference CLI's result.json (`dqo_map_tpu/cli/run_slam.py`
 # over `SLAMSystem.run`, with the object layer's receipts)
@@ -142,12 +191,12 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def slice_config(save_path: str = RUN_DIR):
+def slice_config(save_path: str = RUN_DIR, **extra):
     from dqo_map_tpu_torch.config import default_config
     # bench.py's workload (bench.py:73-116): the object layer, the feature
     # backend at full resolution with the hard keyframe override, loose
     # sync every 6 frames
-    return default_config(
+    return default_config(**extra,
         type="Synthetic", save_path=save_path, use_object=True,
         use_gt_pose=False,
         icp_use_model_depth=False, use_orb_backend=True, orb_downsample=1,
@@ -160,11 +209,25 @@ def slice_config(save_path: str = RUN_DIR):
         sync_tracker2mapper_frames=6)
 
 
+def semantic_config(save_path: str = RUN_B_DIR):
+    """Path B: `slice_config` with `configs/replica/office0_sem.yaml`'s
+    semantic and instance supervision and the objects in MODE=0."""
+    return slice_config(save_path, use_semantics=True, use_instance=True,
+                        semantic_color_weight=0.1, instance_weight=0.8,
+                        object_mode=0)
+
+
 class Recorder:
     """Keeps the arguments of each kernel variant's last launch, to hold
     the kernels against their plain versions at the main path's shapes;
     the launches of the final pass under the `_final` names (`phase`), and
-    none while `phase` is None."""
+    none while `phase` is None. Path B's call sites are tagged (`tag`):
+    while a tag is set, K1's launches of its variant (`TAGS`: the semantic
+    pass's with the background, MODE=0's without) are kept and counted
+    under `blend_fwd<tag>`, and K2's launch on the colour block such a K1
+    launch returned under `blend_bwd<tag>`, whatever the phase."""
+
+    TAGS = {"_sem": True, "_obj": False}    # tag -> with the background
 
     def __init__(self):
         from dqo_map_tpu_torch.ops import blend_cuda
@@ -172,20 +235,37 @@ class Recorder:
         self.fwd, self.bwd = blend_cuda.blend_fwd, blend_cuda.blend_bwd
         self.last = {}
         self.phase = ""
+        self.tag = None
+        self.tagged = {}                    # blend_{fwd,bwd}<tag> -> launches
+        self._colour_tags = {}              # K1 colour block pointer -> tag
 
-    def _keep(self, name, a, kw):
-        if self.phase is not None:
+    def _keep(self, name, a, kw, tag=None):
+        if tag is not None:
+            self.last[name + tag] = (a, kw)
+            self.tagged[name + tag] = self.tagged.get(name + tag, 0) + 1
+        elif self.phase is not None:
             self.last[name + self.phase] = (a, kw)
 
     def __enter__(self):
         def fwd(*a, **kw):
             bg = kw.get("bgt") is not None
-            self._keep("blend_fwd_bg" if bg else "blend_fwd", a, kw)
-            return self.fwd(*a, **kw)
+            out = self.fwd(*a, **kw)
+            tag = self.tag if self.TAGS.get(self.tag) == bg else None
+            if tag:
+                self._colour_tags[out[0].data_ptr()] = tag
+                self._keep("blend_fwd", a, kw, tag)
+            else:
+                self._colour_tags.pop(out[0].data_ptr(), None)
+                self._keep("blend_fwd_bg" if bg else "blend_fwd", a, kw)
+            return out
 
         def bwd(*a, **kw):
             bg = kw.get("bgt") is not None
-            self._keep("blend_bwd_bg" if bg else "blend_bwd", a, kw)
+            tag = self._colour_tags.get(a[9].data_ptr())
+            if tag:
+                self._keep("blend_bwd", a, kw, tag)
+            else:
+                self._keep("blend_bwd_bg" if bg else "blend_bwd", a, kw)
             return self.bwd(*a, **kw)
 
         self.mod.blend_fwd, self.mod.blend_bwd = fwd, bwd
@@ -206,31 +286,41 @@ def reset_launches():
 
 
 def check_launches(what: str, got: dict, scans0: dict, scans1: dict,
-                   renders: int, color_passes: int = 0):
-    """K1 once per model render, scan iteration, background render, range
-    render and colour pass; K2 once per scan iteration."""
+                   renders: int, color_passes: int = 0, obj_iters: int = 0):
+    """K1 once per model render, scan iteration, semantic pass (one an
+    iteration where the frames carry semantics), background render (colour
+    and semantic), range render, colour pass and MODE=0 object iteration;
+    K2 once per scan iteration, semantic pass and object iteration."""
     d = {k: scans1[k] - scans0[k] for k in scans1}
-    want_fwd = (renders + d["iters"] + d["bg_renders"] + d["range_renders"]
-                + color_passes)
+    want_bwd = d["iters"] + d["sem_iters"] + obj_iters
+    want_fwd = (renders + want_bwd + d["bg_renders"] + d["sem_bg_renders"]
+                + d["range_renders"] + color_passes)
     fwd = got["blend_fwd"] + got["blend_fwd_bg"]
     bwd = got["blend_bwd"] + got["blend_bwd_bg"]
     print(f"{what}: launches {got}; model renders {renders}, scans "
           f"local {d['local']} keyframe {d['global']} final {d['final']}, "
-          f"iterations {d['iters']}, background renders {d['bg_renders']}, "
-          f"range renders {d['range_renders']}, colour passes {color_passes}")
-    if fwd != want_fwd or bwd != d["iters"]:
+          f"iterations {d['iters']} (with the semantic pass "
+          f"{d['sem_iters']}), background renders {d['bg_renders']} "
+          f"(semantic {d['sem_bg_renders']}), range renders "
+          f"{d['range_renders']}, colour passes {color_passes}, MODE=0 "
+          f"object iterations {obj_iters}")
+    if fwd != want_fwd or bwd != want_bwd:
         raise RuntimeError(f"{what}: K1 launched {fwd} times for {want_fwd} "
-                           f"blends, K2 {bwd} times for {d['iters']} "
+                           f"blends, K2 {bwd} times for {want_bwd} "
                            "iterations")
 
 
-def check_scans_fall(mapping, start: int):
+def check_scans_fall(mapping, start: int, untrained=None):
     """Each per-frame scan's objective at its last iteration below that at
     iteration iters//2 + 1, where the schedule pins the newest frame (the
-    final pass pins none: `FinalPass` checks it)."""
-    for kind, curve in mapping.scan_log[start:]:
+    final pass pins none: `FinalPass` checks it). `untrained[i]`, where
+    given, is the weighted curve of a term that no gradient reaches (the
+    instance term: the blend's T carries none), taken out of scan i's."""
+    for i, (kind, curve) in enumerate(mapping.scan_log[start:]):
         if kind == "final":
             continue
+        if untrained is not None:
+            curve = curve - untrained[start + i]
         c = curve.tolist()
         mid = len(c) // 2 + 1
         if mid < len(c) - 1 and not c[-1] < c[mid]:
@@ -243,9 +333,10 @@ def check_scans_fall(mapping, start: int):
 
 def pass_objective(m, state, masks, init_stat) -> float:
     """The final pass's objective at `state`, summed over every keyframe:
-    its loss (colour and SSIM terms, no depth term, and the attach term
-    against `init_stat`) of the stable render in each keyframe's render
-    mask `masks[i]`."""
+    its loss (colour and SSIM terms, no depth term, the semantic term where
+    the keyframes keep a semantic image, and the attach term against
+    `init_stat`) of the stable render in each keyframe's render mask
+    `masks[i]`."""
     import torch
     from dqo_map_tpu_torch.models import gaussian_map as gm
     from dqo_map_tpu_torch.slam.mapper import OPT_FIELDS, compute_loss
@@ -258,11 +349,19 @@ def pass_objective(m, state, masks, init_stat) -> float:
     with torch.no_grad():
         for (_, cam, keymap), rm in zip(m.keyframes, masks):
             out = render_state(state, cam, m.settings, "stable")
-            loss, _ = compute_loss(
-                out, {"color_map": keymap["color"], "depth_map": keymap["depth"],
-                      "normal_map": keymap["normal"], "render_mask": rm},
-                params, init_stat, opt_mask, weights, m.args.add_depth_thres,
-                True)
+            image_input = {"color_map": keymap["color"],
+                           "depth_map": keymap["depth"],
+                           "normal_map": keymap["normal"], "render_mask": rm}
+            sem = None
+            if "semantics" in keymap:
+                image_input["semantics_color"] = keymap["semantics"]
+                sem = render_state(state, cam, m.settings, "stable",
+                                   colors_precomp=state.sem_rgb)["render"]
+            # no instance term: the blend's T carries no gradient, so the
+            # pass cannot lower it
+            loss, _ = compute_loss(out, image_input, params, init_stat,
+                                   opt_mask, weights, m.args.add_depth_thres,
+                                   True, sem_render=sem)
             total += float(loss)
     return total
 
@@ -275,8 +374,9 @@ class FinalPass:
     launches it made; the recorder keeps its kernel calls under the
     `_final` names."""
 
-    def __init__(self, system, rec, profile: bool):
+    def __init__(self, system, rec, profile: bool, phase="_final"):
         self.system, self.rec, self.profile = system, rec, profile
+        self.phase = phase
         self.m = system.mapping
         self.inner = self.m.global_optimization
         self.info = None
@@ -354,14 +454,14 @@ class FinalPass:
         launches0 = launches_now()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        self.rec.phase = "_final"
+        outer, self.rec.phase = self.rec.phase, self.phase
         try:
             if self.profile:
                 self._profiled(lambda: self.inner(select_keyframe_num, is_end))
             else:
                 self.inner(select_keyframe_num, is_end)
         finally:
-            self.rec.phase = ""
+            self.rec.phase = outer
         torch.cuda.synchronize()
         self.info["seconds"] = time.perf_counter() - t0
         after_launches = launches_now()
@@ -753,11 +853,13 @@ def check_bwd(name, args, kw, launches, layout) -> dict:
              time_cuda(lambda: blend_bwd(*args, **kw), reps=20),
              time_cuda(lambda: blend_bwd_ref(*args, bgt=bgt), reps=2))
     T, n_live = args[3], int(args[2].sum())
+    T_live = int((args[2] > 0).sum())
     # per live entry: 16 feature rows in, 14 gradient rows out; per pixel
-    # the cotangent's 7 channels, 3 of the colour block, 2 of the aux block
+    # of a tile with entries (no other pixel reaches a gradient) the
+    # cotangent's 7 channels, 3 of the colour block, 2 of the aux block
     # (and 5 of the background operand); each tile's offset and count
-    n_bytes = (n_live * (16 + 14) * 4 + T * 16 + T * 256 * 12 * 4
-               + (T * 256 * 5 * 4 if bgt is not None else 0))
+    n_bytes = (n_live * (16 + 14) * 4 + T * 16 + T_live * 256 * 12 * 4
+               + (T_live * 256 * 5 * 4 if bgt is not None else 0))
     print(f"{name} vs plain version on {T} tiles, {n_live} live entries: "
           f"rows to 1e-4 of their max; zero structure equal but at {n_flip} "
           f"places, largest there {max_flip_rel:.3g} of its row's max")
@@ -858,10 +960,13 @@ def report_final(system, final: dict, result: dict):
     if sc["final"] != 1 or sc["iters"] != want:
         raise RuntimeError(f"the final pass ran {sc}, wanted one pass of "
                            f"{want} iterations")
-    if final["launches"]["blend_fwd"] != sc["iters"] + sc["range_renders"] \
-            or final["launches"]["blend_bwd"] != sc["iters"]:
+    # with semantics, each iteration also blends the semantic pass
+    blends = sc["iters"] + sc["sem_iters"]
+    if final["launches"]["blend_fwd"] != blends + sc["range_renders"] \
+            or final["launches"]["blend_bwd"] != blends:
         raise RuntimeError(f"final pass launches {final['launches']} for "
-                           f"{sc['iters']} iterations")
+                           f"{sc['iters']} iterations ({sc['sem_iters']} "
+                           "with the semantic pass)")
     before, after = final["objective"]
     print(f"final pass objective over every keyframe: {before:.6f} -> "
           f"{after:.6f}")
@@ -1033,6 +1138,362 @@ def cli_phase():
           f"{result['n_objects']} objects")
 
 
+# ---------------------------------------------------------------------------
+# path B: semantic and instance supervision, objects in MODE=0, evaluation
+# ---------------------------------------------------------------------------
+
+def ray_labels(scene, c2w, K, width: int, height: int):
+    """The synthetic room's ray cast (`SyntheticScene.render`), keeping
+    what each ray hit: (label (H,W) int, the wall index 0-5 or 6 + the
+    ellipsoid's, -1 for none; depth (H,W) float32, as `render` gives it)."""
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    xs = (np.arange(width) - cx) / fx
+    ys = (np.arange(height) - cy) / fy
+    dirs_c = np.stack(np.broadcast_arrays(xs[None, :], ys[:, None], 1.0),
+                      axis=-1).reshape(-1, 3)
+    o = c2w[:3, 3]
+    d = dirs_c @ c2w[:3, :3].T
+    t_best = np.full(d.shape[0], np.inf)
+    label = np.full(d.shape[0], -1)
+    lo, hi = scene.bounds
+    for axis in range(3):
+        for side, bound in ((0, lo[axis]), (1, hi[axis])):
+            denom = d[:, axis]
+            safe = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+            t = (bound - o[axis]) / safe
+            p = o[None] + t[:, None] * d
+            oa = [a for a in range(3) if a != axis]
+            inside = (
+                (t > 1e-4)
+                & (p[:, oa[0]] >= lo[oa[0]] - 1e-6) & (p[:, oa[0]] <= hi[oa[0]] + 1e-6)
+                & (p[:, oa[1]] >= lo[oa[1]] - 1e-6) & (p[:, oa[1]] <= hi[oa[1]] + 1e-6))
+            hit = inside & (t < t_best)
+            t_best = np.where(hit, t, t_best)
+            label = np.where(hit, axis * 2 + side, label)
+    for i, obj in enumerate(scene.objects):
+        inv_a = 1.0 / obj["axes"]
+        oc = (o - obj["center"]) * inv_a
+        dc = d * inv_a[None, :]
+        A = np.sum(dc * dc, axis=1)
+        B = 2 * np.sum(oc[None, :] * dc, axis=1)
+        C = np.sum(oc * oc) - 1.0
+        disc = B * B - 4 * A * C
+        t = (-B - np.sqrt(np.maximum(disc, 0))) / (2 * A)
+        hit = (disc > 0) & (t > 1e-4) & (t < t_best)
+        t_best = np.where(hit, t, t_best)
+        label = np.where(hit, 6 + i, label)
+    depth = np.where(np.isfinite(t_best), t_best, 0.0)
+    return (label.reshape(height, width),
+            depth.reshape(height, width).astype(np.float32))
+
+
+def paint_semantics(scene, cams):
+    """Each frame's semantic image, a class colour per wall and per
+    ellipsoid (`CLASS_COLOURS`) found by the room's own ray cast, which
+    must give the frame's depth bit for bit; the instance image is the
+    same image, as the Replica reader makes it."""
+    for cam in cams:
+        label, depth = ray_labels(scene, cam.c2w, cam.K, cam.width,
+                                  cam.height)
+        if not np.array_equal(depth, cam.depth):
+            raise RuntimeError(f"frame {cam.uid}: the semantic ray cast's "
+                               "depth differs from the frame's")
+        sem = np.where((label >= 0)[..., None],
+                       CLASS_COLOURS[np.clip(label, 0, None)], 0.0)
+        cam.semantics = cam.instance = sem.astype(np.float32)
+
+
+def run_path_b(args, device, rec):
+    """Path B, `SLAMSystem.run()` in `semantic_config` over the room's
+    frames with their painted semantic and instance images. Its launches
+    are counted from 0: K1 and K2 twice a scan iteration (the colour and
+    the semantic pass), K1 once more for each memory frame's semantic
+    background in a local scan, 20 of each for every frame whose MODE=0
+    pass had objects, twice a final-pass iteration. The recorder keeps the
+    semantic pass's background-variant launches (`_sem`) and MODE=0's
+    (`_obj`), whose last are the last local scan's last iteration and the
+    last frame's last object iteration. Returns (system, scene, info)."""
+    import torch
+    from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
+    from dqo_map_tpu_torch.models import gaussian_map as gm
+    from dqo_map_tpu_torch.models.quadrics import OBJ_ITERS
+    from dqo_map_tpu_torch.slam import mapper as mapper_mod
+    from dqo_map_tpu_torch.slam.renderer import render_state
+    from dqo_map_tpu_torch.slam.system import SLAMSystem
+
+    scene, cams = synthetic_sequence(args.frames, width=args.width,
+                                     height=args.height, with_detections=True)
+    paint_semantics(scene, cams)
+    shutil.rmtree(RUN_B_DIR, ignore_errors=True)
+    system = SLAMSystem(semantic_config(), cameras=cams, device=device)
+    m, layer = system.mapping, system.object_layer
+    inner_rs, inner_obj = mapper_mod.render_state, layer.optimize_objects_render
+    obj = {"calls": 0, "with_objects": 0, "seconds": []}
+
+    def tagged_render_state(*a, **kw):
+        # the scans' semantic passes are their renders with colors_precomp
+        if kw.get("colors_precomp") is None:
+            return inner_rs(*a, **kw)
+        rec.tag = "_sem"
+        try:
+            return inner_rs(*a, **kw)
+        finally:
+            rec.tag = None
+
+    def optimize_objects_render(frame, settings):
+        rec.tag = "_obj"
+        t0 = time.perf_counter()
+        try:
+            n = inner_obj(frame, settings)
+        finally:
+            rec.tag = None
+        torch.cuda.synchronize(device)
+        obj["seconds"].append(time.perf_counter() - t0)
+        obj["calls"] += 1
+        obj["with_objects"] += n > 0
+        return n
+
+    # each scan's weighted instance curve, which no gradient reaches
+    inner_count, untrained = m._count_scan, []
+
+    def count_scan(kind, reports):
+        if reports["iters"]:
+            untrained.append(float(m.opt.instance_weight)
+                             * reports["instance_loss"])
+        return inner_count(kind, reports)
+
+    inner_step, infos = system.step, []
+
+    def step(cam, i):
+        info = inner_step(cam, i)
+        info["optimized"] = m.did_optimize
+        infos.append(info)
+        return info
+
+    mapper_mod.render_state = tagged_render_state
+    layer.optimize_objects_render = optimize_objects_render
+    m._count_scan = count_scan
+    system.step = step
+    final = FinalPass(system, rec, profile=False, phase=None)
+    m.global_optimization = final
+    passes = ColorPasses(system, rec)
+    system.save_object_passes = passes
+    scans0 = dict(m.scan_counts)
+    rec.phase, rec.tagged = None, {}
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with rec:
+            result = system.run(eval_every=args.frames, verbose=False)
+        torch.cuda.synchronize(device)
+    finally:
+        mapper_mod.render_state = inner_rs
+        del layer.optimize_objects_render, m.global_optimization
+        del system.save_object_passes, m._count_scan, system.step
+        rec.phase = ""
+    seconds = time.perf_counter() - t0
+    launches = launches_now()
+    obj_iters = OBJ_ITERS * obj["with_objects"]
+    if passes.launches is None or passes.launches["blend_fwd"] != COLOR_PASSES:
+        raise RuntimeError(f"path B's colour passes launched {passes.launches}")
+    check_launches("path B", launches, scans0, m.scan_counts, m.renders,
+                   COLOR_PASSES, obj_iters)
+    sc = {k: m.scan_counts[k] - scans0[k] for k in m.scan_counts}
+    if not (sc["sem_iters"] == sc["iters"] > 0
+            and sc["sem_bg_renders"] == sc["bg_renders"] > 0):
+        raise RuntimeError(f"path B ran the semantic pass in {sc['sem_iters']}"
+                           f" of {sc['iters']} iterations and "
+                           f"{sc['sem_bg_renders']} semantic backgrounds for "
+                           f"{sc['bg_renders']}")
+    local_iters = sum(len(c) for kind, c in m.scan_log if kind == "local")
+    want = {"blend_fwd_sem": local_iters, "blend_bwd_sem": local_iters,
+            "blend_fwd_obj": obj_iters, "blend_bwd_obj": obj_iters}
+    got = {k: rec.tagged.get(k, 0) for k in want}
+    print(f"path B: tagged launches {got}; MODE=0 passes {obj['calls']} "
+          f"({obj['with_objects']} with objects), "
+          + " / ".join(f"{1e3 * t:.1f}" for t in obj["seconds"])
+          + f" ms; render receipts {layer.render_receipts}")
+    if got != want or not all(want.values()):
+        raise RuntimeError(f"path B's call sites launched {got}, wanted {want}")
+    check_scans_fall(m, 0, untrained)
+    if final.info is None:
+        raise RuntimeError("path B's run() ran no final pass")
+    for label, sel in (("optimize frames", True), ("other frames", False)):
+        part = [i for i in infos if i["optimized"] == sel]
+        print(f"path B, {label} ({len(part)}): tracking "
+              f"{1e3 * np.mean([i['tracker_s'] for i in part]):.1f} ms, "
+              f"mapping {1e3 * np.mean([i['mapper_s'] for i in part]):.1f} "
+              "ms a frame (host clock; the MODE=0 pass synchronised)")
+    report_final(system, final.info, result)
+
+    # sem_rgb starts as a class colour (the densified pixel's) and the
+    # scans move it; the semantic pass at the last camera against its image
+    alive = (m.state.status != gm.DEAD)[:m.state.count]
+    rgb = m.state.sem_rgb[:m.state.count][alive]
+    classes = torch.as_tensor(CLASS_COLOURS, device=device)
+    at_class = (rgb[:, None, :] == classes[None]).all(-1).any(-1)
+    moved = float((~at_class).float().mean())
+    cin = cams[-1].render_inputs(device)
+    with torch.no_grad():
+        out = render_state(m.state, cin, m.settings, "global",
+                           colors_precomp=m.state.sem_rgb)
+    covered = out["depth_index_map"] >= 0
+    err = (out["render"] - torch.as_tensor(cams[-1].semantics, device=device)
+           ).abs().mean(-1)[covered]
+    sem_err = float(err.mean())
+    print(f"path B: {int(alive.sum())} Gaussians, sem_rgb moved from its "
+          f"sampled class colour on {100 * moved:.1f}%; semantic render at "
+          f"frame {len(cams) - 1}: mean error {sem_err:.4f} on "
+          f"{100 * float(covered.float().mean()):.1f}% covered pixels; "
+          f"whole run {seconds:.2f} s; objects {len(layer.objects)}")
+    if not (moved > 0 and math.isfinite(sem_err) and sem_err < 0.25):
+        raise RuntimeError(f"path B's semantics off: moved {moved}, "
+                           f"error {sem_err}")
+    if obj["with_objects"] == 0 or not all(
+            np.isfinite(o.ellipsoid_.center_).all() for o in layer.objects):
+        raise RuntimeError("path B refined no object in MODE=0")
+    return system, scene, {"launches": launches, "seconds": seconds,
+                           "result": result, "final": final.info,
+                           "obj": obj, "sem_err": sem_err, "moved": moved}
+
+
+def room_points(scene, n_wall: int = 20000, n_obj: int = 4000, seed: int = 0):
+    """Surface points of the synthetic room: its six walls and each
+    ellipsoid, with their outward normals; (walls, [per ellipsoid])."""
+    rng = np.random.default_rng(seed)
+    lo, hi = scene.bounds
+    walls = []
+    for axis in range(3):
+        for bound in (lo[axis], hi[axis]):
+            p = rng.uniform(lo, hi, (n_wall // 6, 3))
+            p[:, axis] = bound
+            walls.append(p)
+    objs = []
+    for o in scene.objects:
+        u = rng.normal(size=(n_obj, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        pts = u * o["axes"] @ o["R"].T + o["center"]
+        nrm = (u / o["axes"]) @ o["R"].T
+        objs.append((pts.astype(np.float32),
+                     (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
+                      ).astype(np.float32)))
+    return np.concatenate(walls).astype(np.float32), objs
+
+
+def eval_phase(system, scene, args, card: str):
+    """The evaluation CLIs on path B's output, on the card, in process:
+    `metric_obj` against a GT box file written from the room's ellipsoids
+    (box mode) and against their surface points (per object, the run's
+    `_obj<K>.ply` exports), both in the run's frame; `make_mesh` over the run's map along its
+    trajectory, scored against the room's surface points; `ablate_assoc` on
+    the synthetic sequence; and `per_object_mesh_eval` on the live map."""
+    import glob
+
+    import torch
+    from dqo_map_tpu_torch.cli import ablate_assoc, make_mesh, metric_obj
+    from dqo_map_tpu_torch.eval.obj_eval import per_object_mesh_eval
+    from dqo_map_tpu_torch.utils.ply import write_point_normal_ply
+
+    from scipy.spatial.transform import Rotation
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    os.makedirs(EVAL_DIR)
+    layer = system.object_layer
+    # the run's map lives in its first camera's frame (the tracker starts
+    # at the identity), so the ground truth goes there too
+    w2r = np.linalg.inv(np.asarray(system.cameras[0].pose_gt, np.float64))
+    R0, t0 = w2r[:3, :3], w2r[:3, 3]
+    gt_boxes = os.path.join(EVAL_DIR, "gt_boxes.txt")
+    with open(gt_boxes, "w") as f:
+        for o in scene.objects:
+            c = R0 @ o["center"] + t0
+            q = Rotation.from_matrix(R0 @ o["R"]).as_quat()      # xyzw
+            a = o["axes"]
+            f.write(f"{o['category_id']} {c[0]} {c[1]} {c[2]} {q[0]} {q[1]} "
+                    f"{q[2]} {q[3]} {a[0]} {a[1]} {a[2]}\n")
+    walls, objs = room_points(scene)
+    walls = (walls @ R0.T + t0).astype(np.float32)
+    objs = [((p @ R0.T + t0).astype(np.float32), (n @ R0.T).astype(np.float32))
+            for p, n in objs]
+    by_cat = {o["category_id"]: i for i, o in enumerate(scene.objects)}
+    gt_mesh, gt_points = [], {}
+    for k, o in enumerate(layer.objects):
+        if o.category_id_ in by_cat:
+            pts, nrm = objs[by_cat[o.category_id_]]
+            path = os.path.join(EVAL_DIR, f"gt_obj{k}.ply")
+            write_point_normal_ply(path, pts, nrm)
+            gt_mesh += ["--gt-mesh", f"{k}={path}"]
+            gt_points[k] = pts
+    room = os.path.join(EVAL_DIR, "room_points.npy")
+    np.save(room, np.concatenate([walls] + [p for p, _ in objs]))
+    cfg = os.path.join(EVAL_DIR, "config.yaml")
+    with open(cfg, "w") as f:
+        # the Synthetic reader's frames over the same orbit
+        room_yaml = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "configs", "synthetic", "room.yaml")
+        f.write(f"parent: {room_yaml}\nframe_num: {args.frames}\n"
+                f"save_path: {RUN_B_DIR}\n")
+    times = {}
+
+    def timed_call(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    box = timed_call("metric_obj boxes", metric_obj.main, [
+        "--pred", os.path.join(RUN_B_DIR, "save_obj", "objects.txt"),
+        "--gt", gt_boxes])
+    # path A's objects (MODE=1, the same frames and first camera) beside
+    box_a = metric_obj.main([
+        "--pred", os.path.join(RUN_DIR, "save_obj", "objects.txt"),
+        "--gt", gt_boxes])
+    per = timed_call("metric_obj per object", metric_obj.main,
+                     ["--per-object", RUN_B_DIR, "--dist-thresh", "0.02"]
+                     + gt_mesh)
+    mesh = timed_call("make_mesh", make_mesh.main, [
+        "--config", cfg, "--model", RUN_B_DIR, "--frame-step", "1",
+        "--gt-mesh", room])
+    ablate = timed_call("ablate_assoc", ablate_assoc.main, [
+        "--synthetic", str(args.frames), "--out",
+        os.path.join(EVAL_DIR, "ablate")])
+    meshes = timed_call("per_object_mesh_eval", per_object_mesh_eval,
+                        system.mapping, system.cameras, gt_points)
+    print(f"evaluation: boxes {box['n_pred']} predicted / {box['n_gt']} GT, "
+          f"mean IoU {box['mean_iou']:.4f}, accuracy@0.25 "
+          f"{box['accuracy@0.25']:.3f}, mean AP {box['ap_curve']['mean_ap']:.3f}"
+          f", centre error {box['mean_center_err_cm']:.2f} cm; path A's "
+          f"objects (MODE=1): {box_a['n_pred']} predicted, mean IoU "
+          f"{box_a['mean_iou']:.4f}, centre error "
+          f"{box_a['mean_center_err_cm']:.2f} cm [{card}]")
+    for k, r in sorted(per.items()):
+        print(f"evaluation: object {k} exported points {r['n_points']}, "
+              f"accuracy {r.get('accuracy_cm', float('nan')):.2f} cm, "
+              f"F1@2cm {r.get('f1', float('nan')):.3f}")
+    for k, r in sorted(meshes.items()):
+        print(f"evaluation: object {k} TSDF mesh {r.get('n_mesh_verts', 0)} "
+              f"vertices, accuracy {r.get('accuracy_cm', float('nan')):.2f} "
+              f"cm, completion {r.get('completion_cm', float('nan')):.2f} cm")
+    me = mesh.get("mesh_eval", {})
+    print(f"evaluation: make_mesh {mesh['vertices']} vertices, {mesh['faces']}"
+          f" faces, {mesh['surface_points']} surface points; against the "
+          f"room: accuracy {me.get('accuracy_cm', float('nan')):.2f} cm, "
+          f"completion {me.get('completion_cm', float('nan')):.2f} cm, "
+          f"F1 {me.get('f1', float('nan')):.3f}; ablate_assoc {ablate}; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()) + f" [{card}]")
+    scored = [r for r in per.values() if "accuracy_cm" in r]
+    if not (box["n_pred"] == len(layer.objects) >= 1
+            and math.isfinite(box["mean_iou"]) and scored
+            and all(math.isfinite(r["accuracy_cm"]) for r in scored)
+            and mesh["faces"] > 0 and math.isfinite(me.get("f1", math.nan))
+            and len(ablate) == 3 and all(n >= 1 for _, n, _ in ablate)
+            and glob.glob(os.path.join(EVAL_DIR, "ablate", "*", "objects.txt"))):
+        raise RuntimeError(f"evaluation phase off: boxes {box}, per object "
+                           f"{per}, mesh {mesh}, ablation {ablate}")
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=12)
@@ -1147,6 +1608,21 @@ def main(argv=None) -> int:
     ply_round_trip(system, final_state, cin, merge_ply)
     checkpoint_round_trip(system, cams, cin, device)
     cli_phase()
+
+    # path B: the semantic and instance losses and MODE=0, its call sites
+    # of K1 and K2 held like path A's, then the evaluation CLIs on its run
+    del system, final_state
+    system_b, scene, _ = run_path_b(args, device, rec)
+    mb = system_b.mapping
+    layout_b = {k: (st.chunk, st.max_chunks_per_tile) for k, st in (
+        ("blend_fwd_sem", mb.usettings), ("blend_bwd_sem", mb.usettings),
+        ("blend_fwd_obj", mb.settings), ("blend_bwd_obj", mb.settings))}
+    with torch.no_grad():
+        for name in PATH_B_ROWS:
+            a, kw = rec.last[name]
+            check = check_bwd if "bwd" in name else check_fwd
+            rows.append(check(name, a, kw, rec.tagged[name], layout_b[name]))
+    eval_phase(system_b, scene, args, card)
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

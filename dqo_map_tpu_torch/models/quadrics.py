@@ -1,15 +1,18 @@
-"""Dual-quadric object layer (counterpart of `dqo_map_tpu/models/quadrics.py`,
-without the MODE=0 render refinement): 2D ellipse / 3D ellipsoid algebra
-in dual form, detection filtering, projected-box association with
-occlusion handling, duplicate removal, and the refinement of every matched
-ellipsoid at once on a projected-box IoU loss.
+"""Dual-quadric object layer (counterpart of `dqo_map_tpu/models/quadrics.py`):
+2D ellipse / 3D ellipsoid algebra in dual form, detection filtering,
+projected-box association with occlusion handling, duplicate removal, and
+the refinement of the ellipsoids: in MODE=1 every matched one at once on a
+projected-box IoU loss, in MODE=0 every live one at once as one Gaussian
+each, rendered through the map's rasterizer (the blend kernels K1 and K2
+on the card) against the object-colour image.
 
 The host half (algebra, filtering, association) is numpy, copied from the
 JAX package so that the port imports nothing of it; the layer draws its
 detection samples and observation schedules from the same
-`np.random.default_rng(2024)` stream. `refine_objects` is plain PyTorch:
-a masked Adam over all `MAX_OBJECTS` slots at once with `torch.autograd`,
-on the layer's device. The caps that change the result are counted in
+`np.random.default_rng(2024)` stream. `refine_objects` and
+`refine_objects_render` are plain PyTorch around the rasterizer: a masked
+Adam over all `MAX_OBJECTS` slots at once with `torch.autograd`, on the
+layer's device. The caps that change the result are counted in
 `TRUNCATION` and reported by the run.
 """
 
@@ -23,6 +26,9 @@ import torch
 # with the module, not at the first call: the import takes ~1 s, which
 # would otherwise land inside a tracked frame
 from scipy.linalg import sqrtm
+
+from ..ops.rasterize import rasterize
+from ..utils.math3d import normalize, quat_to_rotmat, rotmat_to_quat
 
 OBS_CAP = 48          # observations kept per object (reference keeps all)
 MAX_OBJECTS = 64      # compiled optimizer width
@@ -479,7 +485,6 @@ def refine_objects(axes, R, center, obs_bbox, obs_P, obs_valid, opt_mask,
     v = {k: torch.zeros_like(p) for k, p in params.items()}
     rand_idx = torch.as_tensor(rand_idx, device=axes.device).long()
     rows = torch.arange(axes.shape[0], device=axes.device)
-    f32 = torch.float32
     for it in range(iters):
         o = rand_idx[it]
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
@@ -487,17 +492,74 @@ def refine_objects(axes, R, center, obs_bbox, obs_P, obs_valid, opt_mask,
                              obs_bbox[rows, o], obs_P[rows, o],
                              obs_valid[rows, o], opt_mask)
         grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
-        t = torch.tensor(float(it + 1), dtype=f32)
-        bc1 = float(1 - torch.tensor(0.9, dtype=f32) ** t)
-        bc2 = float(1 - torch.tensor(0.999, dtype=f32) ** t)
-        for k, p in params.items():
-            mk = opt_mask.reshape((-1,) + (1,) * (p.dim() - 1))
-            gk = torch.where(mk, grads[k], 0.0)
-            m[k] = 0.9 * m[k] + 0.1 * gk
-            v[k] = 0.999 * v[k] + 0.001 * gk * gk
-            upd = lrs[k] * (m[k] / bc1) / (torch.sqrt(v[k] / bc2) + 1e-15)
-            params[k] = p - torch.where(mk, upd, 0.0)
+        _masked_adam_step(params, grads, m, v, lrs, opt_mask, it + 1)
     return params["axes"], params["R"], params["center"]
+
+
+def _masked_adam_step(params: dict, grads: dict, m: dict, v: dict, lrs: dict,
+                      opt_mask, step: int):
+    """Step `step` of the object refinements' masked Adam (eps 1e-15, bias
+    corrections in float32), in place on `params`, `m` and `v`: the slots
+    outside `opt_mask` take a zero gradient and do not move."""
+    t = torch.tensor(float(step), dtype=torch.float32)
+    bc1 = float(1 - torch.tensor(0.9, dtype=torch.float32) ** t)
+    bc2 = float(1 - torch.tensor(0.999, dtype=torch.float32) ** t)
+    for k, p in params.items():
+        mk = opt_mask.reshape((-1,) + (1,) * (p.dim() - 1))
+        gk = torch.where(mk, grads[k], 0.0)
+        m[k] = 0.9 * m[k] + 0.1 * gk
+        v[k] = 0.999 * v[k] + 0.001 * gk * gk
+        upd = lrs[k] * (m[k] / bc1) / (torch.sqrt(v[k] / bc2) + 1e-15)
+        params[k] = p - torch.where(mk, upd, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# MODE=0: the render refinement
+# ---------------------------------------------------------------------------
+
+def refine_objects_render(log_axes, quat, center, colors, opt_mask, cam,
+                          gt_obj_img, settings, iters: int = OBJ_ITERS,
+                          object_weight: float = 0.1,
+                          lr_center: float = 0.002, lr_axes: float = 0.01,
+                          lr_quat: float = 0.01):
+    """MODE=0's refinement: each ellipsoid of `opt_mask` is one Gaussian
+    (centre, axes as its scales, rotation, its colour, opacity 0.99),
+    rendered through `ops.rasterize.rasterize` at `cam` with `settings`,
+    and a masked Adam (eps 1e-15) fits centres, log-axes and quaternions to
+    `object_weight` x the L1 of the render against `gt_obj_img` (H,W,3).
+
+    log_axes / center (O,3), quat (O,4) wxyz, colors (O,3), opt_mask (O,):
+    tensors on one device. The slots outside `opt_mask` are left out
+    before the projection, so an empty slot (maybe behind the camera)
+    never reaches the blend, and keep their values. Returns the refined
+    (log_axes, normalized quat, center) and the receipts of the renders'
+    caps, `clipped_cells` and `tile_dropped`, each the largest over the
+    iterations."""
+    params = {"center": center, "log_axes": log_axes, "quat": quat}
+    lrs = {"center": lr_center, "log_axes": lr_axes, "quat": lr_quat}
+    m = {k: torch.zeros_like(v) for k, v in params.items()}
+    v = {k: torch.zeros_like(p) for k, p in params.items()}
+    live = torch.nonzero(opt_mask)[:, 0]
+    opacity = torch.full((live.numel(),), 0.99, dtype=center.dtype,
+                         device=center.device)
+    colors = colors[live]
+    caps = []
+    for it in range(iters if live.numel() else 0):
+        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+        out = rasterize(leaves["center"][live],
+                        torch.exp(leaves["log_axes"][live]),
+                        normalize(leaves["quat"][live]), opacity, colors, cam,
+                        settings, with_normal=False, with_n_touched=False)
+        caps.append((out["clipped_cells"], out["tile_dropped"]))
+        loss = object_weight * torch.abs(out["render"] - gt_obj_img).mean()
+        grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
+        _masked_adam_step(params, grads, m, v, lrs, opt_mask, it + 1)
+    receipts = {"clipped_cells": max((int(c) for c, _ in caps), default=0),
+                "tile_dropped": max((int(t) for _, t in caps), default=0)}
+    return (params["log_axes"], normalize(params["quat"]), params["center"],
+            receipts)
+
 
 # ---------------------------------------------------------------------------
 # the object layer over a run
@@ -507,14 +569,11 @@ class ObjectLayer:
     """The objects of a run: `process_frame` associates a frame's
     detections with them (or makes new ones), `obj_id_image` paints the
     matched detections' object index for the new Gaussians to take,
-    `optimize_objects` refines the matched objects, and `save` /
+    `optimize_objects` (MODE=1) refines the matched objects,
+    `optimize_objects_render` (MODE=0) all of them, and `save` /
     `record_iou` write them out."""
 
     def __init__(self, cfg, device="cuda"):
-        if int(getattr(cfg.opt, "object_mode", 1)) != 1:
-            raise NotImplementedError(
-                "object_mode 0 (the render refinement of the objects) is not "
-                "ported yet (ROADMAP.md, section 1); use object_mode 1")
         self.cfg = cfg
         self.device = torch.device(device)
         self.objects: List[MapObject] = []
@@ -524,6 +583,8 @@ class ObjectLayer:
         # association variant: iou | qd | iou_qd
         self.association = cfg.get("association", "iou")
         self._K = None
+        # MODE=0's render caps, the largest over the run's refinements
+        self.render_receipts = {"clipped_cells": 0, "tile_dropped": 0}
 
     def process_frame(self, frame, frame_id: int):
         frame.sync_pose()          # the projections need the host pose
@@ -610,6 +671,49 @@ class ObjectLayer:
         for slot, i in enumerate(active):
             self.objects[i].ellipsoid_ = Ellipsoid(
                 np.abs(new_axes[slot]), new_R[slot], new_center[slot])
+
+    def optimize_objects_render(self, frame, settings) -> int:
+        """MODE=0's frame-end pass: every live object (the first
+        `MAX_OBJECTS`) refined as one Gaussian against the frame's
+        object-colour image, the matched detections' boxes painted with
+        their objects' colours on black (`refine_objects_render`, with
+        the map's render `settings`), then written back to the objects'
+        ellipsoids. Returns the number of objects refined."""
+        objs = self.objects[:MAX_OBJECTS]
+        if not objs:
+            return 0
+        O = MAX_OBJECTS
+        log_axes = np.zeros((O, 3), np.float32)
+        quat = np.tile(np.array([1, 0, 0, 0], np.float32), (O, 1))
+        center = np.zeros((O, 3), np.float32)
+        colors = np.zeros((O, 3), np.float32)
+        opt_mask = np.zeros((O,), bool)
+        for i, obj in enumerate(objs):
+            e = obj.ellipsoid_
+            log_axes[i] = np.log(np.maximum(np.abs(e.axes_), 1e-4))
+            quat[i] = rotmat_to_quat(
+                torch.as_tensor(e.R_, dtype=torch.float32)).numpy()
+            center[i] = e.center_
+            colors[i] = np.asarray(obj.color, np.float32) / 255.0
+            opt_mask[i] = True
+        oid = self.obj_id_image(frame.width, frame.height)
+        gt = np.where(oid[..., None] >= 0, colors[np.clip(oid, 0, O - 1)],
+                      0.0).astype(np.float32)
+        dev = self.device
+        new_la, new_q, new_c, receipts = refine_objects_render(
+            *(torch.as_tensor(a, device=dev) for a in (
+                log_axes, quat, center, colors, opt_mask)),
+            frame.render_inputs(dev), torch.as_tensor(gt, device=dev),
+            settings,
+            object_weight=float(getattr(self.cfg.opt, "object_weight", 0.1)))
+        for k, n in receipts.items():
+            self.render_receipts[k] = max(self.render_receipts[k], n)
+        R = quat_to_rotmat(new_q[:len(objs)]).cpu().numpy().astype(np.float64)
+        new_la, new_c = new_la.cpu().numpy(), new_c.cpu().numpy()
+        for i, obj in enumerate(objs):
+            obj.ellipsoid_ = Ellipsoid(np.exp(new_la[i]).astype(np.float64),
+                                       R[i], new_c[i].astype(np.float64))
+        return len(objs)
 
     def obj_id_image(self, width: int, height: int) -> np.ndarray:
         """(H,W) int32 object index of this frame's matched detections (-1 =

@@ -32,8 +32,18 @@ parameters with those tile lists. The compact scans compute their loss on
 the kernels' tile rows, where the padded edge pixels are outside the
 render mask: the same masked means as in image space. With
 `gaussian_update_iter=0` no per-frame scan runs. `save_model` writes the
-map as PLY files. `mapping` drives the object layer (MODE=1) where the
-run has one; the semantic and instance losses are not ported.
+map as PLY files. `mapping` drives the object layer where the run has
+one: in MODE=1 the box refinement on keyframes, in MODE=0 the render
+refinement at the end of every frame with detections.
+
+Where the frames carry a semantic image, every scan iteration also renders
+the same geometry with the per-Gaussian `sem_rgb` in place of the SH
+colours, with the colour render's binning, and adds its L1 against the
+semantic image to the loss (the geometry keeps its gradient from this
+pass); in the local scan it blends in front of a stable-subset semantic
+background, one per memory frame and scan. Where they carry an instance
+image, the loss also pulls the render's transmittance to 0 on its painted
+pixels and to 1 elsewhere.
 """
 
 from __future__ import annotations
@@ -64,6 +74,8 @@ from ..utils.ply import save_map_ply
 from .renderer import (Renderer, compute_binning_state, coverage_mask_state,
                        render_state, state_geometry)
 
+# the optional supervision images of a scan's stacked frames
+SEMANTIC_MAPS = ("semantics_color", "instance_img")
 RECEIPTS = ("dropped_entries", "tile_dropped", "clipped_cells", "num_entries",
             "entry_demand")
 
@@ -80,7 +92,7 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 # masked Adam
 # ---------------------------------------------------------------------------
 
-OPT_FIELDS = ("xyz", "sh", "scaling", "rotation", "opacity")
+OPT_FIELDS = ("xyz", "sh", "scaling", "rotation", "opacity", "sem_rgb")
 
 
 class AdamState(NamedTuple):
@@ -130,16 +142,17 @@ def _is_zero(weights: dict, k: str) -> bool:
 
 def compute_loss(render_out: dict, image_input: dict, params: dict,
                  init_stat: dict, opt_mask: torch.Tensor, weights: dict,
-                 add_depth_thres: float, use_ssim: bool):
+                 add_depth_thres: float, use_ssim: bool,
+                 sem_render: Optional[torch.Tensor] = None):
     """The scans' loss: colour L1, depth L1 (valid depth, below the add
-    threshold), normal cosine and SSIM terms, weighted, plus the attach
-    anchor that pins low-opacity Gaussians to their initial geometry.
-    Terms whose weight is a Python zero are left out. Maps are image
-    (H, W[, C]) or tile rows (T, 256[, C]); SSIM needs images. Returns
-    (loss, report of the terms)."""
-    for key in ("semantics_color", "instance_img"):
-        if key in image_input:
-            raise NotImplementedError(f"the {key} loss is not ported")
+    threshold), normal cosine and SSIM terms, weighted; the semantic L1 of
+    `sem_render` against `semantics_color` and the instance term (the
+    render's T against 0 on the pixels `instance_img` paints, 1 elsewhere)
+    where the inputs hold those images; plus the attach anchor that pins
+    low-opacity Gaussians to their initial geometry. Terms whose weight is
+    a Python zero are left out. Maps are image (H, W[, C]) or tile rows
+    (T, 256[, C]); SSIM needs images. Returns (loss, report of the
+    terms)."""
     render_mask = image_input["render_mask"]
     image = render_out["render"]
     depth_index = render_out["depth_index_map"]
@@ -167,6 +180,19 @@ def compute_loss(render_out: dict, image_input: dict, params: dict,
     total = (weights["depth"] * depth_loss + weights["normal"] * normal_loss
              + weights["color"] * color_loss + weights["ssim"] * ssim_loss)
 
+    semantic_loss = 0.0
+    if sem_render is not None and "semantics_color" in image_input:
+        semantic_loss = masked_mean(
+            torch.abs(sem_render - image_input["semantics_color"]), render_mask)
+        total = total + weights.get("semantic", 0.1) * semantic_loss
+    instance_loss = 0.0
+    if "instance_img" in image_input:
+        inst_gt = torch.where(
+            torch.sum(image_input["instance_img"], dim=-1) > 0, 0.0, 1.0)
+        instance_loss = masked_mean(torch.abs(render_out["T_map"] - inst_gt),
+                                    render_mask)
+        total = total + weights.get("instance", 0.8) * instance_loss
+
     attach_mask = (torch.sigmoid(init_stat["opacity"]) < 0.9) & opt_mask
     attach = 1000.0 * (
         masked_mean((params["scaling"] - init_stat["scaling"]) ** 2, attach_mask)
@@ -175,7 +201,8 @@ def compute_loss(render_out: dict, image_input: dict, params: dict,
                       attach_mask))
     report = {"total_loss": total, "color_loss": color_loss,
               "depth_loss": depth_loss, "normal_loss": normal_loss,
-              "ssim_loss": ssim_loss, "scale_loss": attach}
+              "ssim_loss": ssim_loss, "scale_loss": attach,
+              "semantic_loss": semantic_loss, "instance_loss": instance_loss}
     return total + attach, report
 
 
@@ -247,7 +274,9 @@ def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
 
     frames: stacked tensors: color (F,H,W,3), depth (F,H,W), normal
     (F,H,W,3), render_mask (F,H,W), tile_mask (F,TH,TW), w2c and full_proj
-    (F,4,4), cam_pos (F,3); K (3,3), tan_fovx / tan_fovy. rand_idx:
+    (F,4,4), cam_pos (F,3); K (3,3), tan_fovx / tan_fovy; optionally
+    semantics_color and instance_img (F,H,W,3), which add the semantic
+    pass and the instance term (`compute_loss`). rand_idx:
     (iters,) frame choices (`Mapping._rand_schedule`). `use_ssim` adds the
     SSIM term to the loss; with `with_tile_mask=False` every frame is
     binned and rendered whole, its tile mask unused. Returns (state, report
@@ -265,21 +294,33 @@ def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
                                       subset, tms[f]) for f in range(n_frames)]
 
     def loss_of(st, f, p):
-        out = render_state(st, _frame_cam(frames, f), settings, subset,
-                           tms[f], binning=binnings[f])
+        cam = _frame_cam(frames, f)
+        out = render_state(st, cam, settings, subset, tms[f],
+                           binning=binnings[f])
         image_input = {"color_map": frames["color"][f],
                        "depth_map": frames["depth"][f],
                        "normal_map": frames["normal"][f],
                        "render_mask": frames["render_mask"][f]}
+        for k in SEMANTIC_MAPS:
+            if k in frames:
+                image_input[k] = frames[k][f]
+        sem = None
+        if "semantics_color" in frames:
+            # the semantic pass: the same geometry, with its gradient
+            sem = render_state(st, cam, settings, subset, tms[f],
+                               binning=binnings[f],
+                               colors_precomp=p["sem_rgb"])["render"]
         return compute_loss(out, image_input, p, init_stat, opt_mask, weights,
-                            add_depth_thres, use_ssim)
+                            add_depth_thres, use_ssim, sem_render=sem)
 
     params, confidence, reports = _adam_scan(sub, iters, rand_idx, lrs,
                                              opt_mask, loss_of)
     new = {k: torch.cat([params[k], getattr(state, k)[B:]])
            for k in OPT_FIELDS}
     new["confidence"] = torch.cat([confidence, state.confidence[B:]])
-    return state.replace(**new), _receipts(reports, binnings, iters)
+    reports = _receipts(reports, binnings, iters)
+    reports["sem_iters"] = iters if "semantics_color" in frames else 0
+    return state.replace(**new), reports
 
 
 def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
@@ -300,9 +341,14 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
       masked tile): the rows render alone, exactly as the whole stable set
       would inside the masked tiles.
 
+    With `semantics_color` in `frames`, every iteration also renders the
+    semantic pass with the same binning, in front of the stable subset's
+    semantic render where `use_bg` (one a frame and scan, every tile,
+    packed with the colour background's depth and T).
+
     Returns (state, report of (iters,) loss curves, the binning receipts
-    and the number of background renders). Its loss is in tile space, so
-    it has no SSIM term."""
+    and the number of background and semantic background renders). Its
+    loss is in tile space, so it has no SSIM term."""
     weights = dict(weights)
     uidx = torch.nonzero(row_mask)[:, 0]
     sub = _substate(state, uidx, gm.UNSTABLE)
@@ -311,30 +357,45 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
                                               "rotation")}
     n_frames = frames["w2c"].shape[0]
     ts, W, H = settings.tile_size, settings.width, settings.height
-    gt = [{"color_map": tile_map(frames["color"][f], ts, W, H),
-           "depth_map": tile_map(frames["depth"][f], ts, W, H),
-           "normal_map": tile_map(frames["normal"][f], ts, W, H),
-           "render_mask": tile_map(frames["render_mask"][f], ts, W, H)}
-          for f in range(n_frames)]
-    bgs, bgts = [], []
+    with_semantics = "semantics_color" in frames
+    gt = []
+    for f in range(n_frames):
+        g = {"color_map": tile_map(frames["color"][f], ts, W, H),
+             "depth_map": tile_map(frames["depth"][f], ts, W, H),
+             "normal_map": tile_map(frames["normal"][f], ts, W, H),
+             "render_mask": tile_map(frames["render_mask"][f], ts, W, H)}
+        for k in SEMANTIC_MAPS:
+            if k in frames:
+                g[k] = tile_map(frames[k][f], ts, W, H)
+        gt.append(g)
+    bgs, bgts, bgts_sem = [], [], []
     if use_bg:
         with torch.no_grad():
             for f in range(n_frames):
-                bg = render_state(state, _frame_cam(frames, f), settings,
-                                  "stable", frames["tile_mask"][f], tiled=True)
+                cam = _frame_cam(frames, f)
+                bg = render_state(state, cam, settings, "stable",
+                                  frames["tile_mask"][f], tiled=True)
                 bgs.append({k: bg[k] for k in ("render", "depth", "normal",
                                                "depth_index_map", "T_map")})
-                bgts.append(pack_bg_tiled(
-                    bg["render"],
-                    torch.where(bg["depth_index_map"] >= 0, bg["depth"], 1e30),
-                    bg["T_final"]))
+                bg_depth = torch.where(bg["depth_index_map"] >= 0,
+                                       bg["depth"], 1e30)
+                bgts.append(pack_bg_tiled(bg["render"], bg_depth,
+                                          bg["T_final"]))
+                if with_semantics:
+                    # the stable subset's semantic render, every tile,
+                    # packed with the colour background's depth and T
+                    sem_bg = render_state(state, cam, settings, "stable",
+                                          colors_precomp=state.sem_rgb,
+                                          tiled=True)["render"]
+                    bgts_sem.append(pack_bg_tiled(sem_bg, bg_depth,
+                                                  bg["T_final"]))
     binnings = [compute_binning_state(sub, _frame_cam(frames, f), usettings,
                                       "global", frames["tile_mask"][f])
                 for f in range(n_frames)]
 
     def loss_of(st, f, p):
-        u = render_state(st, _frame_cam(frames, f), usettings, "global",
-                         binning=binnings[f],
+        cam = _frame_cam(frames, f)
+        u = render_state(st, cam, usettings, "global", binning=binnings[f],
                          bg_tiled=bgts[f] if use_bg else None, tiled=True)
         out = u
         if use_bg:
@@ -349,8 +410,15 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
                    "depth_index_map": torch.where(u_wins, u["depth_index_map"],
                                                   bg["depth_index_map"]),
                    "T_map": u["T_map"] * bg["T_map"]}
+        sem = None
+        if with_semantics:
+            sem = render_state(st, cam, usettings, "global",
+                               colors_precomp=p["sem_rgb"],
+                               binning=binnings[f],
+                               bg_tiled=bgts_sem[f] if use_bg else None,
+                               tiled=True)["render"]
         return compute_loss(out, gt[f], p, init_stat, valid_u, weights,
-                            add_depth_thres, False)
+                            add_depth_thres, False, sem_render=sem)
 
     if sub.count == 0:
         reports = {}
@@ -366,6 +434,8 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
         state = state.replace(**new)
     reports = _receipts(reports, binnings, iters if sub.count else 0)
     reports["bg_renders"] = len(bgts)
+    reports["sem_bg_renders"] = len(bgts_sem)
+    reports["sem_iters"] = reports["iters"] if with_semantics else 0
     return state, reports
 
 
@@ -496,11 +566,14 @@ def densify_step(state: MapState, frame_map: dict, cam: dict, model_map: dict,
     # with the object layer, each point takes the object index of its pixel
     oid = (frame_map["obj_id_map"].reshape(-1)[idx]
            if "obj_id_map" in frame_map else None)
+    # with a semantic image, each point takes its pixel's semantic colour
+    sem = (frame_map["semantics"].reshape(-1, 3)[idx]
+           if frame_map.get("semantics") is not None else None)
     new = gm.make_new_points(
         frame_map["vertex_map_w"].reshape(-1, 3)[idx],
         frame_map["normal_map_w"].reshape(-1, 3)[idx],
         frame_map["color_map"].reshape(-1, 3)[idx], valid, time, frame_id,
-        init_opacity, (xf0, xf1, xf2), obj_id=oid)
+        init_opacity, (xf0, xf1, xf2), obj_id=oid, sem_rgb=sem)
 
     # coverage filter: drop points an unstable gaussian already covers (one
     # of its 3 nearest unstable neighbours within 0.6 x its radius). This
@@ -634,6 +707,7 @@ class Mapping:
     def __init__(self, cfg: Config, width: int, height: int, device="cuda"):
         args = cfg.map
         self.local_opt_mode = str(getattr(args, "local_opt_mode", "bg"))
+        self.object_mode = int(getattr(cfg.opt, "object_mode", 1))
         if self.local_opt_mode not in LOCAL_OPT_MODES:
             raise ValueError(f"local_opt_mode must be one of {LOCAL_OPT_MODES}, "
                              f"got {self.local_opt_mode!r}")
@@ -670,12 +744,13 @@ class Mapping:
         self._host_rng = np.random.default_rng(2024)
         self.receipts = dict.fromkeys(RECEIPTS, 0)   # max over the renders
         self.renders = 0
-        # scans run (local, keyframe, final pass), their Adam steps, and the
-        # renders they make besides the steps' own: stable backgrounds and
+        # scans run (local, keyframe, final pass), their Adam steps (those
+        # with the semantic pass apart), and the renders they make besides
+        # the steps' own: stable backgrounds (colour and semantic) and
         # keyframe range renders
         self.scan_counts = dict.fromkeys(
-            ("local", "global", "final", "iters", "bg_renders",
-             "range_renders"), 0)
+            ("local", "global", "final", "iters", "sem_iters", "bg_renders",
+             "sem_bg_renders", "range_renders"), 0)
         # (kind, (iters,) objective curve) of every scan run
         self.scan_log: list = []
 
@@ -750,11 +825,15 @@ class Mapping:
     def check_keyframe(self, frame: Camera, frame_map: dict,
                        frame_id: int) -> bool:
         """Keep the frame as a keyframe when it turned or moved far enough
-        from the last one (the first frame always). Its maps stay on the
-        device."""
+        from the last one (the first frame always). Its maps, the semantic
+        and instance images included, stay on the device."""
         frame.sync_pose()
         keymap = {"color": frame_map["color_map"], "depth": frame_map["depth_map"],
                   "normal": frame_map["normal_map_w"]}
+        if frame_map.get("semantics") is not None:
+            keymap["semantics"] = frame_map["semantics"]
+        if frame_map.get("instance_img") is not None:
+            keymap["instance"] = frame_map["instance_img"]
         if self.time == 0:
             self.keyframes.append((frame, frame.render_inputs(self.device), keymap))
             self.keyframe_ids.append(frame_id)
@@ -772,17 +851,20 @@ class Mapping:
     def _lrs(self, coef_feature=1.0, coef_scaling=1.0, coef_rotation=1.0,
              lr_scale=1.0, position_lr=None) -> dict:
         """Per-group learning rates; the SH DC at `feature_lr`, the rest of
-        the SH at a twentieth of it."""
+        the SH at a twentieth of it, `sem_rgb` at `semantic_lr` x
+        `semantic_lr_coef`."""
         o = self.opt
         pos = o.position_lr if position_lr is None else position_lr
         sh_lr = torch.full((gm.SH_K, 1),
                            o.feature_lr / 20.0 * coef_feature * lr_scale,
                            device=self.device)
         sh_lr[0] = o.feature_lr * coef_feature * lr_scale
+        sem_coef = getattr(self.args, "semantic_lr_coef", 1.0)
         return {"xyz": pos * lr_scale, "sh": sh_lr[None],
                 "scaling": o.scaling_lr * coef_scaling * lr_scale,
                 "rotation": o.rotation_lr * coef_rotation * lr_scale,
-                "opacity": o.opacity_lr * lr_scale}
+                "opacity": o.opacity_lr * lr_scale,
+                "sem_rgb": o.semantic_lr * sem_coef * lr_scale}
 
     def _weights(self) -> dict:
         o = self.opt
@@ -800,15 +882,12 @@ class Mapping:
 
     def _stack_frames(self, entries: list, tile_size: int) -> dict:
         """entries: dicts of color / depth / normal maps, render_mask,
-        tile_mask (None: every tile) and cam (render inputs)."""
-        for e in entries:
-            for key in ("semantics_color", "instance_img"):
-                if e.get(key) is not None:
-                    raise NotImplementedError(f"the {key} loss is not ported")
+        tile_mask (None: every tile), cam (render inputs) and, where the
+        first entry has them, semantics_color and instance_img."""
         TH, TW = binning_mod.tile_grid_size(self.width, self.height, tile_size)
         ones = torch.ones((TH, TW), dtype=torch.int32, device=self.device)
         cam0 = entries[0]["cam"]
-        return {
+        frames = {
             "color": torch.stack([e["color"] for e in entries]),
             "depth": torch.stack([e["depth"] for e in entries]),
             "normal": torch.stack([e["normal"] for e in entries]),
@@ -821,6 +900,10 @@ class Mapping:
             "K": cam0["K"], "tan_fovx": cam0["tan_fovx"],
             "tan_fovy": cam0["tan_fovy"],
         }
+        for key in SEMANTIC_MAPS:
+            if entries[0].get(key) is not None:
+                frames[key] = torch.stack([e[key] for e in entries])
+        return frames
 
     def _rand_schedule(self, iters: int, n_frames: int,
                        second_half_last: bool = True) -> np.ndarray:
@@ -835,7 +918,8 @@ class Mapping:
     def _count_scan(self, kind: str, reports: dict):
         self.scan_counts[kind] += 1
         self.scan_counts["iters"] += reports["iters"]
-        self.scan_counts["bg_renders"] += reports.get("bg_renders", 0)
+        for k in ("sem_iters", "bg_renders", "sem_bg_renders"):
+            self.scan_counts[k] += reports.get(k, 0)
         self.receipts["tile_dropped"] = max(self.receipts["tile_dropped"],
                                             reports["tile_dropped"])
         self.receipts["clipped_cells"] = max(self.receipts["clipped_cells"],
@@ -910,7 +994,9 @@ class Mapping:
             self.scan_counts["range_renders"] += 1
             entries.append({"color": keymap["color"], "depth": keymap["depth"],
                             "normal": keymap["normal"], "render_mask": rm,
-                            "tile_mask": None if is_final else tm, "cam": cam})
+                            "tile_mask": None if is_final else tm, "cam": cam,
+                            "semantics_color": keymap.get("semantics"),
+                            "instance_img": keymap.get("instance")})
         frames = self._stack_frames(entries, ts)
         if is_final:
             a = self.args
@@ -944,9 +1030,12 @@ class Mapping:
         the end-of-frame model render. On the optimize cadence it runs the
         local scan, or on a keyframe over a map with stable Gaussians the
         keyframe scan. With the object layer, the frame's detections are
-        associated first, the new Gaussians take the object index of their
-        pixel, and on a keyframe (and frame 0) the matched objects are
-        refined after the scan."""
+        associated first and the new Gaussians take the object index of
+        their pixel. In MODE=1 the matched objects are refined after the
+        scan on a keyframe (and frame 0); in MODE=0 every frame with
+        detections ends with the render refinement of the objects and the
+        deletion of the stable Gaussians whose radius exceeds ten times the
+        stable mean."""
         if object_layer is not None:
             if frame.detections is not None:
                 object_layer.process_frame(frame, frame_id)
@@ -968,8 +1057,15 @@ class Mapping:
                     self.local_optimize(frame)
                 else:
                     self.global_optimization(self.args.global_keyframe_num)
-            if object_layer is not None and (is_keyframe or frame_id == 0):
+            if (object_layer is not None and (is_keyframe or frame_id == 0)
+                    and self.object_mode == 1):
                 object_layer.optimize_objects()
+        if (object_layer is not None and frame.detections
+                and self.object_mode == 0):
+            object_layer.optimize_objects_render(frame, self.settings)
+            self.state = gaussians_delete(self.state, self.time,
+                                          self.args.unstable_time_window,
+                                          unstable=False)
         return is_keyframe
 
     def finalize_frame(self, out: dict, frame_map: dict):

@@ -167,6 +167,11 @@ class Tracker:
         )
         self._curr_pyr = (fm["vertex_pyr"], fm["normal_pyr"])
         fm["time"] = frame_id
+        # the semantic and instance images, which the scans supervise with
+        for key, img in (("semantics", frame.semantics),
+                         ("instance_img", frame.instance)):
+            fm[key] = (None if img is None else
+                       torch.as_tensor(img, dtype=torch.float32, device=dev))
         return fm
 
     def tracking(self, frame: Camera, frame_map: dict) -> bool:

@@ -26,6 +26,37 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) rotation -> (...,4) wxyz quaternion, normalized; Shepperd's
+    four cases, chosen without branching."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def s_of(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 2
+
+    s = s_of(tr + 1.0)
+    c0 = torch.stack([0.25 * s, (m21 - m12) / s, (m02 - m20) / s,
+                      (m10 - m01) / s], -1)
+    s = s_of(1.0 + m00 - m11 - m22)
+    c1 = torch.stack([(m21 - m12) / s, 0.25 * s, (m01 + m10) / s,
+                      (m02 + m20) / s], -1)
+    s = s_of(1.0 + m11 - m00 - m22)
+    c2 = torch.stack([(m02 - m20) / s, (m01 + m10) / s, 0.25 * s,
+                      (m12 + m21) / s], -1)
+    s = s_of(1.0 + m22 - m00 - m11)
+    c3 = torch.stack([(m10 - m01) / s, (m02 + m20) / s, (m12 + m21) / s,
+                      0.25 * s], -1)
+    use0 = tr > 0
+    use1 = (~use0) & (m00 >= m11) & (m00 >= m22)
+    use2 = (~use0) & (~use1) & (m11 >= m22)
+    q = torch.where(use0[..., None], c0, torch.where(
+        use1[..., None], c1, torch.where(use2[..., None], c2, c3)))
+    return normalize(q)
+
+
 def quaternion_from_two_vectors(init_vec: torch.Tensor,
                                 target_vec: torch.Tensor) -> torch.Tensor:
     """Quaternion rotating init_vec onto target_vec."""

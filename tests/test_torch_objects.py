@@ -285,8 +285,12 @@ def test_object_layer_matches_jax(sequences):
 
 
 def test_object_mode_0_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        q.ObjectLayer(default_config(use_object=True, object_mode=0), "cpu")
+    """MODE=0 is ported: the layer builds without raising, and its
+    frame-end pass refines nothing while it has no object
+    (`tests/test_torch_mode0.py` holds the pass against the JAX package)."""
+    layer = q.ObjectLayer(default_config(use_object=True, object_mode=0), "cpu")
+    assert layer.optimize_objects_render(None, None) == 0
+    assert layer.render_receipts == {"clipped_cells": 0, "tile_dropped": 0}
 
 
 # ---------------------------------------------------------------------------

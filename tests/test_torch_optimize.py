@@ -151,9 +151,19 @@ def test_compute_loss_matches_jax(rng):
             np.testing.assert_allclose(float(v), float(rj[k]), rtol=1e-6, atol=1e-7,
                                        err_msg=k)
         assert float(rp["scale_loss"]) > 0
-    with pytest.raises(NotImplementedError):
-        mapper.compute_loss(cast(out, tt), dict(cast(gt, tt), instance_img=tt(gt["color_map"])),
-                            cast(params, tt), cast(init, tt), tt(mask), weights, 0.1, False)
+    # the instance term, which the port now computes as the JAX package does
+    # (`tests/test_torch_semantics.py` holds the semantic term too)
+    inst = dict(cast(gt, jnp.asarray), instance_img=jnp.asarray(
+        np.asarray(gt["color_map"], np.float32)))
+    lj, rj = jmapper.compute_loss(cast(out, jnp.asarray), inst, cast(params, jnp.asarray),
+                                  cast(init, jnp.asarray), jnp.asarray(mask), weights,
+                                  0.1, False)
+    lp, rp = mapper.compute_loss(cast(out, tt), dict(cast(gt, tt), instance_img=tt(gt["color_map"])),
+                                 cast(params, tt), cast(init, tt), tt(mask), weights, 0.1, False)
+    np.testing.assert_allclose(float(lp), float(lj), rtol=1e-6)
+    np.testing.assert_allclose(float(rp["instance_loss"]), float(rj["instance_loss"]),
+                               rtol=1e-6)
+    assert float(rp["instance_loss"]) > 0
 
 
 @pytest.fixture
