@@ -127,6 +127,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -162,9 +163,21 @@ REPLACES = {
     "blend_bwd_sem": "dqo_map_tpu/ops/blend_pallas.py:366",
     "blend_fwd_obj": "dqo_map_tpu/ops/blend_pallas.py:179",
     "blend_bwd_obj": "dqo_map_tpu/ops/blend_pallas.py:366",
+    "blend_fwd_dp": "dqo_map_tpu/ops/blend_pallas.py:179",
+    "blend_bwd_dp": "dqo_map_tpu/ops/blend_pallas.py:366",
 }
 PATH_B_ROWS = ("blend_fwd_sem", "blend_bwd_sem", "blend_fwd_obj",
                "blend_bwd_obj")
+PATH_C_ROWS = ("blend_fwd_dp", "blend_bwd_dp")
+# the keys of bench.py's JSON line (bench.py:203-243) but `rungs`, which
+# the port has no counterpart of, and the port's own `device` and `card`
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "p50_ms", "p95_ms",
+              "max_ms", "steady_frame_ms", "optimize_frame_ms", "tracker_ms",
+              "mapper_ms", "warmup_s", "dropped_entries", "tile_dropped",
+              "clipped_cells", "entries_max", "entries_per_s", "stages",
+              "psnr", "depth_l1_cm", "ate_cm", "eval_frame", "psnr_final",
+              "depth_l1_final_cm", "ate_full_cm", "icp_fail_count",
+              "frames_over_spike_ms", "device", "card"}
 # path B's semantic classes: the six walls of the synthetic room, then its
 # ellipsoids, one colour each
 CLASS_COLOURS = np.array([
@@ -174,6 +187,8 @@ CLASS_COLOURS = np.array([
     [0.55, 0.55, 0.55]], np.float32)
 RUN_DIR = os.path.join("chiprun_out", "run")
 RUN_B_DIR = os.path.join("chiprun_out", "run_sem")
+RUN_C_DIR = os.path.join("chiprun_out", "run_dp")
+BENCH_DIR = os.path.join("chiprun_out", "bench")
 EVAL_DIR = os.path.join("chiprun_out", "eval")
 CLI_DIR = os.path.join("chiprun_out", "cli")
 # the keys of the reference CLI's result.json (`dqo_map_tpu/cli/run_slam.py`
@@ -221,13 +236,14 @@ class Recorder:
     """Keeps the arguments of each kernel variant's last launch, to hold
     the kernels against their plain versions at the main path's shapes;
     the launches of the final pass under the `_final` names (`phase`), and
-    none while `phase` is None. Path B's call sites are tagged (`tag`):
-    while a tag is set, K1's launches of its variant (`TAGS`: the semantic
-    pass's with the background, MODE=0's without) are kept and counted
-    under `blend_fwd<tag>`, and K2's launch on the colour block such a K1
-    launch returned under `blend_bwd<tag>`, whatever the phase."""
+    none while `phase` is None. Path B's and path C's call sites are
+    tagged (`tag`): while a tag is set, K1's launches of its variant
+    (`TAGS`: the semantic pass's with the background, MODE=0's and the
+    data-parallel scans' without) are kept and counted under
+    `blend_fwd<tag>`, and K2's launch on the colour block such a K1 launch
+    returned under `blend_bwd<tag>`, whatever the phase."""
 
-    TAGS = {"_sem": True, "_obj": False}    # tag -> with the background
+    TAGS = {"_sem": True, "_obj": False, "_dp": False}   # tag -> with bg
 
     def __init__(self):
         from dqo_map_tpu_torch.ops import blend_cuda
@@ -292,7 +308,10 @@ def check_launches(what: str, got: dict, scans0: dict, scans1: dict,
     and semantic), range render, colour pass and MODE=0 object iteration;
     K2 once per scan iteration, semantic pass and object iteration."""
     d = {k: scans1[k] - scans0[k] for k in scans1}
-    want_bwd = d["iters"] + d["sem_iters"] + obj_iters
+    # a scan's blends with gradient: one an iteration, two with the
+    # semantic pass, one a live keyframe slot an iteration when
+    # data-parallel
+    want_bwd = d["blends"] + obj_iters
     want_fwd = (renders + want_bwd + d["bg_renders"] + d["sem_bg_renders"]
                 + d["range_renders"] + color_passes)
     fwd = got["blend_fwd"] + got["blend_fwd_bg"]
@@ -300,7 +319,8 @@ def check_launches(what: str, got: dict, scans0: dict, scans1: dict,
     print(f"{what}: launches {got}; model renders {renders}, scans "
           f"local {d['local']} keyframe {d['global']} final {d['final']}, "
           f"iterations {d['iters']} (with the semantic pass "
-          f"{d['sem_iters']}), background renders {d['bg_renders']} "
+          f"{d['sem_iters']}; blends {d['blends']}), background renders "
+          f"{d['bg_renders']} "
           f"(semantic {d['sem_bg_renders']}), range renders "
           f"{d['range_renders']}, colour passes {color_passes}, MODE=0 "
           f"object iterations {obj_iters}")
@@ -310,14 +330,16 @@ def check_launches(what: str, got: dict, scans0: dict, scans1: dict,
                            "iterations")
 
 
-def check_scans_fall(mapping, start: int, untrained=None):
+def check_scans_fall(mapping, start: int, untrained=None,
+                     kinds=("local", "global")):
     """Each per-frame scan's objective at its last iteration below that at
     iteration iters//2 + 1, where the schedule pins the newest frame (the
-    final pass pins none: `FinalPass` checks it). `untrained[i]`, where
-    given, is the weighted curve of a term that no gradient reaches (the
-    instance term: the blend's T carries none), taken out of scan i's."""
+    final pass pins none: `FinalPass` checks it), for the scans of
+    `kinds`. `untrained[i]`, where given, is the weighted curve of a term
+    that no gradient reaches (the instance term: the blend's T carries
+    none), taken out of scan i's."""
     for i, (kind, curve) in enumerate(mapping.scan_log[start:]):
-        if kind == "final":
+        if kind not in kinds:
             continue
         if untrained is not None:
             curve = curve - untrained[start + i]
@@ -960,13 +982,14 @@ def report_final(system, final: dict, result: dict):
     if sc["final"] != 1 or sc["iters"] != want:
         raise RuntimeError(f"the final pass ran {sc}, wanted one pass of "
                            f"{want} iterations")
-    # with semantics, each iteration also blends the semantic pass
-    blends = sc["iters"] + sc["sem_iters"]
+    # with semantics, each iteration also blends the semantic pass; data-
+    # parallel, each iteration blends every keyframe
+    blends = sc["blends"]
     if final["launches"]["blend_fwd"] != blends + sc["range_renders"] \
             or final["launches"]["blend_bwd"] != blends:
         raise RuntimeError(f"final pass launches {final['launches']} for "
                            f"{sc['iters']} iterations ({sc['sem_iters']} "
-                           "with the semantic pass)")
+                           f"with the semantic pass, {blends} blends)")
     before, after = final["objective"]
     print(f"final pass objective over every keyframe: {before:.6f} -> "
           f"{after:.6f}")
@@ -1107,10 +1130,13 @@ def checkpoint_round_trip(system, cams, cin, device):
         raise RuntimeError(f"checkpoint round trip differs in {bad}")
 
 
-def cli_phase():
-    """The `run_slam` CLI on the card, as a subprocess, on 6 frames of
+def cli_phase(merge_ply: str, card: str, device):
+    """The CLIs on the card: `run_slam` as a subprocess on 6 frames of
     `configs/synthetic/room.yaml` as it is (the reader's 160x120, the
-    object layer on)."""
+    object layer on); `render_traj` as a subprocess on path A's merged PLY
+    along its trajectory, every 4th pose, with the instance pass, one of
+    its PNGs read back; the viewer on path A's run in a thread, on a free
+    local port, its page, `/stats` and one `/render` with the overlays."""
     os.makedirs(CLI_DIR, exist_ok=True)
     out = os.path.join(CLI_DIR, "run")
     shutil.rmtree(out, ignore_errors=True)
@@ -1136,6 +1162,68 @@ def cli_phase():
           f"PSNR {result['psnr']:.2f} dB, depth-L1 "
           f"{result['depth_l1_cm']:.3f} cm, ATE {result['ate_cm']:.4f} cm, "
           f"{result['n_objects']} objects")
+
+    from dqo_map_tpu_torch.utils.png import read_png
+    traj = os.path.join(RUN_DIR, "save_traj", "pose_es.npy")
+    fly = os.path.join(CLI_DIR, "render_traj")
+    shutil.rmtree(fly, ignore_errors=True)
+    cmd = [sys.executable, "-m", "dqo_map_tpu_torch.cli.render_traj",
+           "--config", cfg, "--model", merge_ply, "--traj", traj, "--out", fly,
+           "--frame-step", "4", "--with-instance", "--device", str(device)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} exited {res.returncode}:\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    n_poses = len(np.load(traj)[::4])
+    pngs = sorted(os.listdir(fly))
+    rgb = read_png(os.path.join(fly, "rgb_00000.png"))
+    print(f"CLI: render_traj on {os.path.basename(merge_ply)}: exit 0 in "
+          f"{seconds:.1f} s, {len(pngs)} PNGs; rgb_00000.png {rgb.shape}, "
+          f"mean {rgb.mean():.1f}")
+    if len(pngs) != 3 * n_poses or rgb.ndim != 3 or not rgb.std() > 0:
+        raise RuntimeError(f"render_traj wrote {pngs}, rgb {rgb.shape}")
+
+    import urllib.request
+
+    from dqo_map_tpu_torch.cli.viewer import load_view, make_server
+    from dqo_map_tpu_torch.config import Config
+    view = load_view(Config.from_yaml(cfg), RUN_DIR, 640, 480, 1 << 20,
+                     str(device))
+    srv = make_server(view, 0, host="127.0.0.1")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    # straight to the local server, never through a proxy
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    got = {}
+    try:
+        for route in ("/", "/stats", "/render?yaw=0.2&mode=color%2Bobj"):
+            t0 = time.perf_counter()
+            with opener.open(base + route, timeout=120) as r:
+                got[route] = (r.headers["Content-Type"], r.read(),
+                              time.perf_counter() - t0)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise RuntimeError("the viewer's server thread did not stop")
+    kind, body, render_s = got["/render?yaw=0.2&mode=color%2Bobj"]
+    view_png = os.path.join(CLI_DIR, "viewer.png")
+    with open(view_png, "wb") as f:
+        f.write(body)
+    img = read_png(view_png)
+    stats = json.loads(got["/stats"][1])
+    print(f"CLI: viewer on {RUN_DIR}: / {got['/'][0]}, /stats {stats}, "
+          f"/render {kind} {img.shape} in {1e3 * render_s:.1f} ms, "
+          f"{len(view.objects)} objects and {len(view.frusta)} frusta drawn "
+          f"[{card}]")
+    if not (got["/"][0] == "text/html" and kind == "image/png"
+            and img.shape == (480, 640, 3) and stats["n_gaussians"] > 0
+            and view.objects):
+        raise RuntimeError(f"viewer off: {kind} {img.shape}, {stats}")
 
 
 # ---------------------------------------------------------------------------
@@ -1494,6 +1582,148 @@ def eval_phase(system, scene, args, card: str):
     return times
 
 
+# ---------------------------------------------------------------------------
+# path C: data parallelism over the cards; the bench phase
+# ---------------------------------------------------------------------------
+
+def run_path_c(args, device, rec):
+    """Path C, `SLAMSystem.run()` in `slice_config` with
+    `parallel_enabled`, over path A's frames: a mesh of every card, the
+    keyframe scans and the final pass through `dp_optimize_scan` (each
+    iteration one blend a live keyframe slot; their K1 and K2 launches
+    tagged `_dp`), MODE=1's refinement through `shard_objects_refine`.
+    Checks the launches against the blends, each data-parallel scan's
+    objective falling from its first iteration to its last, the final
+    pass's over every keyframe, an object refined through the shards,
+    PSNR and ATE. Returns (system, info)."""
+    import torch
+    from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
+    from dqo_map_tpu_torch.parallel import dp as dp_mod
+    from dqo_map_tpu_torch.slam.system import SLAMSystem
+
+    _, cams = synthetic_sequence(args.frames, width=args.width,
+                                 height=args.height, with_detections=True)
+    shutil.rmtree(RUN_C_DIR, ignore_errors=True)
+    system = SLAMSystem(slice_config(RUN_C_DIR, parallel_enabled=True),
+                        cameras=cams, device=device)
+    m, layer = system.mapping, system.object_layer
+    n_dev = torch.cuda.device_count()
+    if m.mesh is None or m.mesh.size != n_dev or layer.mesh is not m.mesh:
+        raise RuntimeError(f"path C's mesh {m.mesh}, wanted {n_dev} cards "
+                           "on the mapper and the object layer")
+    inner_scan, inner_shard = dp_mod.dp_optimize_scan, dp_mod.shard_objects_refine
+    scans, shards = [], {"calls": 0, "objects": 0}
+
+    def dp_scan(*a, **kw):
+        rec.tag = "_dp"
+        t0 = time.perf_counter()
+        try:
+            state, reports = inner_scan(*a, **kw)
+        finally:
+            rec.tag = None
+        torch.cuda.synchronize(device)
+        fweight = a[3]
+        scans.append({"final": not kw["with_tile_mask"],
+                      "slots": len(fweight),
+                      "live": sum(1 for w in fweight if w > 0),
+                      "iters": reports["iters"], "blends": reports["blends"],
+                      "seconds": time.perf_counter() - t0,
+                      "curve": (reports["total_loss"]
+                                + reports["scale_loss"]).tolist()})
+        return state, reports
+
+    def shard(*a, **kw):
+        shards["calls"] += 1
+        shards["objects"] += int(a[7].sum())          # opt_mask
+        return inner_shard(*a, **kw)
+
+    final = FinalPass(system, rec, profile=False, phase=None)
+    m.global_optimization = final
+    passes = ColorPasses(system, rec)
+    system.save_object_passes = passes
+    dp_mod.dp_optimize_scan, dp_mod.shard_objects_refine = dp_scan, shard
+    scans0 = dict(m.scan_counts)
+    rec.phase, rec.tagged = None, {}
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with rec:
+            result = system.run(eval_every=args.frames, verbose=False)
+        torch.cuda.synchronize(device)
+    finally:
+        dp_mod.dp_optimize_scan, dp_mod.shard_objects_refine = (inner_scan,
+                                                                inner_shard)
+        del m.global_optimization, system.save_object_passes
+        rec.phase = ""
+    seconds = time.perf_counter() - t0
+    launches = launches_now()
+    check_launches("path C", launches, scans0, m.scan_counts, m.renders,
+                   COLOR_PASSES)
+    sc = {k: m.scan_counts[k] - scans0[k] for k in m.scan_counts}
+    n_final = sum(x["final"] for x in scans)
+    blends = sum(x["blends"] for x in scans)
+    got = {k: rec.tagged.get(k, 0) for k in PATH_C_ROWS}
+    print(f"path C: mesh of {n_dev} card(s); data-parallel scans "
+          + "; ".join(f"{'final' if x['final'] else 'keyframe'} {x['iters']} "
+                      f"iterations x {x['live']} of {x['slots']} slots, "
+                      f"{x['seconds']:.2f} s "
+                      f"({1e3 * x['seconds'] / max(x['iters'], 1):.1f} ms an "
+                      f"iteration), objective {x['curve'][0]:.5f} -> "
+                      f"{x['curve'][-1]:.5f}" for x in scans)
+          + f"; tagged launches {got}; shard_objects_refine {shards['calls']} "
+          f"calls over {shards['objects']} objects; whole run {seconds:.2f} s")
+    # path A's frames make frame 11 a keyframe over a map with stable
+    # Gaussians: its keyframe scan runs data-parallel here
+    if not (n_final == sc["final"] == 1 and sc["global"] >= 1
+            and len(scans) - 1 == sc["global"]):
+        raise RuntimeError(f"path C's scans {sc}: {len(scans)} ran "
+                           "data-parallel, wanted every keyframe scan (at "
+                           "least one) and the final pass")
+    if got != {k: blends for k in PATH_C_ROWS} or not blends:
+        raise RuntimeError(f"path C's scans launched {got} for {blends} "
+                           "blends")
+    for x in scans:
+        if x["iters"] and not x["curve"][-1] < x["curve"][0]:
+            raise RuntimeError(f"a data-parallel scan did not optimise: {x}")
+    check_scans_fall(m, 0, kinds=("local",))
+    if not (shards["calls"] >= 1 and shards["objects"] >= 1):
+        raise RuntimeError(f"path C refined no object through the shards: "
+                           f"{shards}")
+    if final.info is None:
+        raise RuntimeError("path C's run() ran no final pass")
+    report_final(system, final.info, result)
+    if not (result["psnr"] > 15 and math.isfinite(result["ate_cm"])):
+        raise RuntimeError(f"path C's output off: {result}")
+    shutil.rmtree(RUN_C_DIR)
+    return system, {"scans": scans, "seconds": seconds, "result": result}
+
+
+def bench_phase(card: str, device) -> dict:
+    """`python -m dqo_map_tpu_torch.bench` in process at its defaults
+    (30 frames, 18 of them warm-up, then 12 profiled, at 1200x680): its
+    JSON line has bench.py's keys but `rungs`, `dropped_entries` 0, stages
+    for both frame classes with the local scan's `per_iter_ms`, PSNR above
+    15 and ATE finite."""
+    from dqo_map_tpu_torch import bench
+    t0 = time.perf_counter()
+    out = bench.main(["--device", str(device), "--save-path", BENCH_DIR])
+    seconds = time.perf_counter() - t0
+    print(f"bench: {seconds:.1f} s; {out['value']} fps, p50 {out['p50_ms']} "
+          f"ms, steady {out['steady_frame_ms']} ms, optimize "
+          f"{out['optimize_frame_ms']} ms, warm-up {out['warmup_s']} s; PSNR "
+          f"{out['psnr']} dB, depth-L1 {out['depth_l1_cm']} cm, ATE "
+          f"{out['ate_cm']} cm at frame {out['eval_frame']} [{card}]")
+    scan = out["stages"].get("optimize", {}).get("local/optimize_scan x50", {})
+    if not (set(out) == BENCH_KEYS and out["dropped_entries"] == 0
+            and out["stages"].get("steady") and "per_iter_ms" in scan
+            and out["psnr"] > 15 and math.isfinite(out["ate_cm"])
+            and out["card"] == card):
+        raise RuntimeError(f"the bench's line is off: keys "
+                           f"{sorted(set(out) ^ BENCH_KEYS)} differ; {out}")
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=12)
@@ -1607,7 +1837,7 @@ def main(argv=None) -> int:
 
     ply_round_trip(system, final_state, cin, merge_ply)
     checkpoint_round_trip(system, cams, cin, device)
-    cli_phase()
+    cli_phase(merge_ply, card, device)
 
     # path B: the semantic and instance losses and MODE=0, its call sites
     # of K1 and K2 held like path A's, then the evaluation CLIs on its run
@@ -1623,6 +1853,22 @@ def main(argv=None) -> int:
             check = check_bwd if "bwd" in name else check_fwd
             rows.append(check(name, a, kw, rec.tagged[name], layout_b[name]))
     eval_phase(system_b, scene, args, card)
+
+    # path C: the keyframe scans and the final pass data-parallel over the
+    # cards, their K1 and K2 launches held like path B's
+    del system_b, scene
+    rec.last.clear()
+    system_c, _ = run_path_c(args, device, rec)
+    st_c = system_c.mapping.settings
+    with torch.no_grad():
+        for name in PATH_C_ROWS:
+            a, kw = rec.last[name]
+            check = check_bwd if "bwd" in name else check_fwd
+            rows.append(check(name, a, kw, rec.tagged[name],
+                              (st_c.chunk, st_c.max_chunks_per_tile)))
+    del system_c
+    rec.last.clear()
+    bench_phase(card, device)
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

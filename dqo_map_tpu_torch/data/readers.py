@@ -20,20 +20,44 @@ from typing import List, Optional
 import numpy as np
 
 from ..models.cameras import Camera
+from ..utils.png import read_png
 from .detections import load_detection_json
 
 
+def _pil_image(path: str, why: str):
+    """`PIL.Image.open(path)`, or an `ImportError` that names the file and
+    why it needs PIL where PIL is not installed."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: {why} needs PIL, which is not "
+                          "installed") from e
+    return Image.open(path)
+
+
 def _load_image(path: str, size=None) -> np.ndarray:
-    from PIL import Image
-    img = Image.open(path)
+    """A colour image as float32 in [0, 1]. A PNG at its own size is
+    decoded by `utils/png.py`; a JPEG, or a resize to another (W, H)
+    `size`, goes through PIL."""
+    if path.lower().endswith(".png"):
+        img = read_png(path)
+        if size is None or tuple(size) == (img.shape[1], img.shape[0]):
+            return img.astype(np.float32) / 255.0
+        why = f"resizing a {img.shape[1]}x{img.shape[0]} frame to {size}"
+    else:
+        why = "reading a JPEG (or other non-PNG) frame"
+    img = _pil_image(path, why)
     if size is not None:
         img = img.resize(size)
     return np.asarray(img, np.float32) / 255.0
 
 
 def _load_depth(path: str, scale: float) -> np.ndarray:
-    from PIL import Image
-    return np.asarray(Image.open(path), np.float32) / scale
+    """A depth image in metres: its samples over `scale`."""
+    if path.lower().endswith(".png"):
+        return read_png(path).astype(np.float32) / scale
+    return np.asarray(_pil_image(path, "reading a non-PNG depth frame"),
+                      np.float32) / scale
 
 
 def _relative_poses(poses: List[np.ndarray]) -> List[np.ndarray]:

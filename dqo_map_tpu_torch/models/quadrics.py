@@ -585,6 +585,9 @@ class ObjectLayer:
         self._K = None
         # MODE=0's render caps, the largest over the run's refinements
         self.render_receipts = {"clipped_cells": 0, "tile_dropped": 0}
+        # SLAMSystem installs a `parallel.dp.Mesh` here with
+        # `parallel_enabled`: MODE=1's refinement then shards over objects
+        self.mesh = None
 
     def process_frame(self, frame, frame_id: int):
         frame.sync_pose()          # the projections need the host pose
@@ -618,7 +621,8 @@ class ObjectLayer:
     def optimize_objects(self):
         """Refine every object matched in the last processed frame that has
         at least two observations, all at once (`refine_objects`), on the
-        layer's device."""
+        layer's device, or with a mesh split over its devices by object
+        (`parallel.dp.shard_objects_refine`)."""
         active = []
         for det in self.current_dets:
             obj = det.get("obj")
@@ -662,12 +666,15 @@ class ObjectLayer:
         rand_idx = self.rng.integers(0, n_obs[None, :], (OBJ_ITERS, O))
         for it in range(OBJ_ITERS // 4 + 1, OBJ_ITERS):
             rand_idx[it] = n_obs - 1
-        dev = self.device
-        new_axes, new_R, new_center = (
-            x.cpu().numpy() for x in refine_objects(
-                *(torch.as_tensor(a, device=dev) for a in (
-                    axes, R, center, obs_bbox, obs_P, obs_valid, opt_mask)),
-                rand_idx))
+        args = [torch.as_tensor(a, device=self.device) for a in (
+            axes, R, center, obs_bbox, obs_P, obs_valid, opt_mask)]
+        if self.mesh is not None and MAX_OBJECTS % self.mesh.size == 0:
+            from ..parallel.dp import shard_objects_refine
+            out = shard_objects_refine(self.mesh, *args, rand_idx,
+                                       iters=OBJ_ITERS)
+        else:
+            out = refine_objects(*args, rand_idx)
+        new_axes, new_R, new_center = (x.cpu().numpy() for x in out)
         for slot, i in enumerate(active):
             self.objects[i].ellipsoid_ = Ellipsoid(
                 np.abs(new_axes[slot]), new_R[slot], new_center[slot])

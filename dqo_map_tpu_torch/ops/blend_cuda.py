@@ -131,6 +131,9 @@ def pack_entries(pre, b, colors, opacities) -> torch.Tensor:
 
 def _check_common(name, feats, tile_offsets, tile_counts, num_tiles,
                   tile_size, bgt):
+    """The arguments both kernels read: every tensor the kernel reads by
+    pointer on `feats`' device, which must be a card (K's four scalars are
+    copied there)."""
     if tile_size != 16:
         raise ValueError(f"the kernels blend 16x16 tiles, got {tile_size}")
     if feats.dtype != torch.float32 or feats.dim() != 2 or feats.shape[0] != NF:
@@ -140,6 +143,11 @@ def _check_common(name, feats, tile_offsets, tile_counts, num_tiles,
         raise ValueError("tile_offsets must be int64 (num_tiles + 1,)")
     if tile_counts.dtype != torch.int64 or tile_counts.shape != (num_tiles,):
         raise ValueError("tile_counts must be int64 (num_tiles,)")
+    for what, x in (("tile_offsets", tile_offsets),
+                    ("tile_counts", tile_counts)):
+        if x.device != feats.device:
+            raise ValueError(f"{what} must be on feats' device "
+                             f"{feats.device}, got {x.device}")
     if bgt is not None:
         _check_block("bgt", bgt, num_tiles, NB, feats.device)
     if not feats.is_cuda:
@@ -203,26 +211,31 @@ def blend_fwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
     _check_common("blend_fwd", feats, tile_offsets, tile_counts, num_tiles,
                   tile_size, bgt)
     feats = feats.contiguous()
-    tile_offsets = tile_offsets.to(dev).contiguous()
-    tile_counts = tile_counts.to(dev).contiguous()
+    tile_offsets = tile_offsets.contiguous()
+    tile_counts = tile_counts.contiguous()
     L = feats.shape[1]
     n_px = tile_size * tile_size
-    scal = _scal(K, dev)
-    color = torch.empty((num_tiles, n_px, NC), dtype=torch.float32, device=dev)
-    aux = torch.empty((num_tiles, n_px, NA), dtype=torch.float32, device=dev)
-    nt = torch.zeros(L, dtype=torch.int32, device=dev)
     bg = [float(x) for x in bg]
     TW = (width + tile_size - 1) // tile_size
     lib = _lib("blend_fwd")
-    rc = lib.dqo_blend_fwd(
-        feats.data_ptr(), L, tile_offsets.data_ptr(), tile_counts.data_ptr(),
-        None if tile_order is None else tile_order.data_ptr(), num_tiles, TW,
-        scal.data_ptr(),
-        params.opaque_threshold, params.depth_threshold,
-        params.normal_threshold, params.T_threshold, ALPHA_MIN, ALPHA_MAX,
-        bg[0], bg[1], bg[2], None if bgt is None else bgt.data_ptr(),
-        color.data_ptr(), aux.data_ptr(), nt.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the kernel launches on the current device: make it the tensors' one
+    with torch.cuda.device(dev):
+        scal = _scal(K, dev)
+        color = torch.empty((num_tiles, n_px, NC), dtype=torch.float32,
+                            device=dev)
+        aux = torch.empty((num_tiles, n_px, NA), dtype=torch.float32,
+                          device=dev)
+        nt = torch.zeros(L, dtype=torch.int32, device=dev)
+        rc = lib.dqo_blend_fwd(
+            feats.data_ptr(), L, tile_offsets.data_ptr(),
+            tile_counts.data_ptr(),
+            None if tile_order is None else tile_order.data_ptr(), num_tiles,
+            TW, scal.data_ptr(),
+            params.opaque_threshold, params.depth_threshold,
+            params.normal_threshold, params.T_threshold, ALPHA_MIN, ALPHA_MAX,
+            bg[0], bg[1], bg[2], None if bgt is None else bgt.data_ptr(),
+            color.data_ptr(), aux.data_ptr(), nt.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, lib, "blend_fwd")
     LAUNCHES["blend_fwd" if bgt is None else "blend_fwd_bg"] += 1
     return color, aux, nt
@@ -247,23 +260,26 @@ def blend_bwd(feats: torch.Tensor, tile_offsets: torch.Tensor,
                         ("dcolor", dcolor, NC)):
         _check_block(what, x, num_tiles, ch, dev)
     feats = feats.contiguous()
-    tile_offsets = tile_offsets.to(dev).contiguous()
-    tile_counts = tile_counts.to(dev).contiguous()
+    tile_offsets = tile_offsets.contiguous()
+    tile_counts = tile_counts.contiguous()
     L = feats.shape[1]
-    scal = _scal(K, dev)
-    dfeats = torch.zeros((NF, L), dtype=torch.float32, device=dev)
     bg = [float(x) for x in bg]
     TW = (width + tile_size - 1) // tile_size
     lib = _lib("blend_bwd")
-    rc = lib.dqo_blend_bwd(
-        feats.data_ptr(), L, tile_offsets.data_ptr(), tile_counts.data_ptr(),
-        None if tile_order is None else tile_order.data_ptr(), num_tiles, TW,
-        scal.data_ptr(),
-        params.opaque_threshold, params.depth_threshold,
-        params.normal_threshold, params.T_threshold, ALPHA_MIN, ALPHA_MAX,
-        bg[0], bg[1], bg[2], None if bgt is None else bgt.data_ptr(),
-        dcolor.data_ptr(), color.data_ptr(), aux.data_ptr(),
-        dfeats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    # the kernel launches on the current device: make it the tensors' one
+    with torch.cuda.device(dev):
+        scal = _scal(K, dev)
+        dfeats = torch.zeros((NF, L), dtype=torch.float32, device=dev)
+        rc = lib.dqo_blend_bwd(
+            feats.data_ptr(), L, tile_offsets.data_ptr(),
+            tile_counts.data_ptr(),
+            None if tile_order is None else tile_order.data_ptr(), num_tiles,
+            TW, scal.data_ptr(),
+            params.opaque_threshold, params.depth_threshold,
+            params.normal_threshold, params.T_threshold, ALPHA_MIN, ALPHA_MAX,
+            bg[0], bg[1], bg[2], None if bgt is None else bgt.data_ptr(),
+            dcolor.data_ptr(), color.data_ptr(), aux.data_ptr(),
+            dfeats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, lib, "blend_bwd")
     LAUNCHES["blend_bwd" if bgt is None else "blend_bwd_bg"] += 1
     return dfeats

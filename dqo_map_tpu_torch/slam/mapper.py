@@ -44,12 +44,21 @@ pass); in the local scan it blends in front of a stable-subset semantic
 background, one per memory frame and scan. Where they carry an instance
 image, the loss also pulls the render's transmittance to 0 on its painted
 pixels and to 1 elsewhere.
+
+With a mesh (`Mapping.mesh`, installed by `SLAMSystem` under
+`parallel_enabled`) the keyframe scan and the final pass run data-parallel
+(`parallel/dp.py`). The stage timers (`profile_enable`, `stage_times`,
+switched on by `DQO_PROFILE`) time the mapper's, the system's and the
+tracker's stages under the JAX package's tags, each stage waiting for the
+card; with the timers off they cost nothing.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import sys
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -224,23 +233,30 @@ def _substate(state: MapState, rows, status=None) -> MapState:
     return MapState(**sub, count=sub["xyz"].shape[0])
 
 
-def _adam_scan(sub: MapState, iters: int, rand_idx, lrs: dict, opt_mask,
-               loss_of):
+def _grads(sub: MapState, params: dict, loss_of):
+    """The report of `loss_of(state, p)` -> (loss, report) at `params`, the
+    state being `sub` with its `OPT_FIELDS` the leaves `p`, and the loss's
+    gradients in those fields (0 where none reaches)."""
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss, report = loss_of(sub.replace(**p), p)
+    grads = torch.autograd.grad(loss, [p[k] for k in OPT_FIELDS],
+                                allow_unused=True)
+    return report, {k: torch.zeros_like(p[k]) if g is None else g
+                    for k, g in zip(OPT_FIELDS, grads)}
+
+
+def _adam_scan(sub: MapState, iters: int, lrs: dict, opt_mask,
+               value_and_grad):
     """`iters` masked Adam steps on the parameters of `sub`; step `it`
-    minimizes `loss_of(state, it)` -> (loss, report). Confidence grows by
-    one on the rows of `opt_mask` whose SH DC gradient is not exactly 0.
-    Returns (params, confidence, reports of (iters,) curves)."""
+    takes `value_and_grad(params, it)` -> (report, gradients). Confidence
+    grows by one on the rows of `opt_mask` whose SH DC gradient is not
+    exactly 0. Returns (params, confidence, reports of (iters,) curves)."""
     params = {k: getattr(sub, k) for k in OPT_FIELDS}
     opt_state = adam_init(params)
     confidence = sub.confidence
     reports = []
     for it in range(iters):
-        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss, report = loss_of(sub.replace(**p), int(rand_idx[it]), p)
-        grads = torch.autograd.grad(loss, [p[k] for k in OPT_FIELDS],
-                                    allow_unused=True)
-        grads = {k: torch.zeros_like(p[k]) if g is None else g
-                 for k, g in zip(OPT_FIELDS, grads)}
+        report, grads = value_and_grad(params, it)
         with torch.no_grad():
             params, opt_state = adam_update(params, grads, opt_state, lrs,
                                             opt_mask)
@@ -281,10 +297,42 @@ def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
     SSIM term to the loss; with `with_tile_mask=False` every frame is
     binned and rendered whole, its tile mask unused. Returns (state, report
     of (iters,) loss curves and the binning receipts)."""
-    weights = dict(weights)
     B = state.count
     sub = _substate(state, slice(0, B))
     opt_mask = sub.status == status_value
+    loss_of, binnings = image_loss(sub, frames, settings, subset,
+                                   with_tile_mask, opt_mask, weights,
+                                   add_depth_thres, use_ssim)
+    params, confidence, reports = _adam_scan(
+        sub, iters, lrs, opt_mask, lambda params, it: _grads(
+            sub, params, lambda st, p: loss_of(st, int(rand_idx[it]), p)))
+    with_sem = "semantics_color" in frames
+    reports = _receipts(reports, binnings, iters)
+    reports["sem_iters"] = iters if with_sem else 0
+    reports["blends"] = iters * (2 if with_sem else 1)
+    return scattered(state, params, confidence), reports
+
+
+def scattered(state: MapState, params: dict, confidence) -> MapState:
+    """`state` with its first rows' `OPT_FIELDS` and confidence replaced by
+    `params` and `confidence`."""
+    B = confidence.shape[0]
+    new = {k: torch.cat([params[k], getattr(state, k)[B:]])
+           for k in OPT_FIELDS}
+    new["confidence"] = torch.cat([confidence, state.confidence[B:]])
+    return state.replace(**new)
+
+
+def image_loss(sub: MapState, frames: dict, settings: RenderSettings,
+               subset: str, with_tile_mask: bool, opt_mask, weights,
+               add_depth_thres: float, use_ssim: bool):
+    """The loss of the image-space scans: (`loss_of(state, f, p)` ->
+    (loss, report), the binnings). Each stacked frame is binned once, from
+    `sub`; `loss_of` renders `subset` of `state` (whose `OPT_FIELDS` are the
+    leaves `p`) at frame f with its binning, with the semantic pass where
+    the frames carry `semantics_color`, and takes `compute_loss` against
+    frame f, the attach term anchored at `sub`."""
+    weights = dict(weights)
     init_stat = {k: getattr(sub, k) for k in ("opacity", "scaling", "xyz",
                                               "rotation")}
     n_frames = frames["w2c"].shape[0]
@@ -313,14 +361,7 @@ def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
         return compute_loss(out, image_input, p, init_stat, opt_mask, weights,
                             add_depth_thres, use_ssim, sem_render=sem)
 
-    params, confidence, reports = _adam_scan(sub, iters, rand_idx, lrs,
-                                             opt_mask, loss_of)
-    new = {k: torch.cat([params[k], getattr(state, k)[B:]])
-           for k in OPT_FIELDS}
-    new["confidence"] = torch.cat([confidence, state.confidence[B:]])
-    reports = _receipts(reports, binnings, iters)
-    reports["sem_iters"] = iters if "semantics_color" in frames else 0
-    return state.replace(**new), reports
+    return loss_of, binnings
 
 
 def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
@@ -423,8 +464,9 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
     if sub.count == 0:
         reports = {}
     else:
-        params, confidence, reports = _adam_scan(sub, iters, rand_idx, lrs,
-                                                 valid_u, loss_of)
+        params, confidence, reports = _adam_scan(
+            sub, iters, lrs, valid_u, lambda params, it: _grads(
+                sub, params, lambda st, p: loss_of(st, int(rand_idx[it]), p)))
         new = {}
         for k in OPT_FIELDS:
             new[k] = getattr(state, k).clone()
@@ -436,6 +478,7 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
     reports["bg_renders"] = len(bgts)
     reports["sem_bg_renders"] = len(bgts_sem)
     reports["sem_iters"] = reports["iters"] if with_semantics else 0
+    reports["blends"] = reports["iters"] * (2 if with_semantics else 1)
     return state, reports
 
 
@@ -697,6 +740,61 @@ def error_remove_from(state: MapState, out: dict, frame_map: dict,
 
 
 # ---------------------------------------------------------------------------
+# stage timers
+# ---------------------------------------------------------------------------
+
+_PROFILE = bool(os.environ.get("DQO_PROFILE"))
+_STAGES: dict = {}          # tag -> [ms] while profiling is on
+
+
+def profile_enable(flag: bool = True):
+    """Switch the stage timers on or off (`DQO_PROFILE` sets the start).
+    Each timed stage waits for the card, so with the timers on the host no
+    longer runs ahead of it: they give the split of a frame, not its
+    time."""
+    global _PROFILE
+    _PROFILE = flag
+
+
+def stage_times(reset: bool = False) -> dict:
+    """{tag: [ms, ...]} recorded since the last reset."""
+    global _STAGES
+    out = {k: list(v) for k, v in _STAGES.items()}
+    if reset:
+        _STAGES = {}
+    return out
+
+
+def _first_tensor(out):
+    if torch.is_tensor(out):
+        return out
+    for x in (out.values() if isinstance(out, dict) else out):
+        t = _first_tensor(x)
+        if t is not None:
+            return t
+    return None
+
+
+def _pr(tag, t0, out=None):
+    """With the timers on: wait for the card where `out` (a tensor, or a
+    list or dict of them) lies on one, then record and print the ms since
+    `t0` under `tag`. Returns at once with the timers off."""
+    if not _PROFILE:
+        return
+    if out is not None:
+        leaf = _first_tensor(out)
+        if leaf is not None and leaf.is_cuda:
+            torch.cuda.synchronize(leaf.device)
+    ms = (time.perf_counter() - t0) * 1000
+    _STAGES.setdefault(tag, []).append(ms)
+    print(f"#   {tag}: {ms:.1f} ms", file=sys.stderr)
+
+
+def _now() -> float:
+    return time.perf_counter() if _PROFILE else 0.0
+
+
+# ---------------------------------------------------------------------------
 # host-side Mapping orchestrator
 # ---------------------------------------------------------------------------
 
@@ -749,10 +847,15 @@ class Mapping:
         # the steps' own: stable backgrounds (colour and semantic) and
         # keyframe range renders
         self.scan_counts = dict.fromkeys(
-            ("local", "global", "final", "iters", "sem_iters", "bg_renders",
-             "sem_bg_renders", "range_renders"), 0)
+            ("local", "global", "final", "iters", "sem_iters", "blends",
+             "bg_renders", "sem_bg_renders", "range_renders"), 0)
         # (kind, (iters,) objective curve) of every scan run
         self.scan_log: list = []
+        self._warned_dropped = False
+        # SLAMSystem installs a `parallel.dp.Mesh` here with
+        # `parallel_enabled`: the keyframe scan and the final pass then run
+        # data-parallel over its devices (`dp_optimize_scan`)
+        self.mesh = None
 
     # --------------------------------------------------------------
     def _uniform_draws(self, n: int):
@@ -762,14 +865,31 @@ class Mapping:
 
     def get_render_output(self, cam_inputs: dict) -> dict:
         """The model render of the whole map at `cam_inputs`."""
+        t0 = _now()
         out = render_state(self.state, cam_inputs, self.settings, "global",
                            with_n_touched=bool(getattr(self.args, "use_prune",
                                                        False)))
         for k in RECEIPTS:
             self.receipts[k] = max(self.receipts[k], int(out[k]))
         self.renders += 1
+        _pr("render/_render_global", t0, out["depth"])
         self.model_map = out
         return out
+
+    def dropped_entries(self) -> tuple:
+        """(dropped entries, most live entries of a model render, most
+        clipped cells, most entries the per-tile cap cut) over the run so
+        far, from the host's receipts: no wait for the card. The entry
+        list is sized by the binning's demand, so `dropped` is 0 by
+        construction. Warns once where the per-tile cap cut entries."""
+        r = self.receipts
+        d, td = r["dropped_entries"], r["tile_dropped"]
+        if (d > 0 or td > 0) and not self._warned_dropped:
+            self._warned_dropped = True
+            print(f"[mapper] WARNING: render entry truncation occurred "
+                  f"(budget {d}, per-tile {td}; raise max_chunks_per_tile)",
+                  file=sys.stderr)
+        return d, r["num_entries"], r["clipped_cells"], td
 
     def counts(self) -> tuple:
         """(n_unstable, n_stable)."""
@@ -791,8 +911,12 @@ class Mapping:
     def gaussians_add(self, frame: Camera, frame_map: dict, frame_id: int) -> int:
         cam = frame.render_inputs(self.device)
         is_first = self.time == 0
-        model_map = (self._zero_model_map() if is_first
-                     else self.get_render_output(cam))
+        if is_first:
+            model_map = self._zero_model_map()
+        else:
+            t0 = _now()
+            model_map = self.get_render_output(cam)
+            _pr("add/model_render", t0, model_map["depth"])
         a = self.args
         cfg = (a.uniform_sample_num, a.add_transmission_thres,
                a.transmission_sample_ratio, a.add_depth_thres,
@@ -805,10 +929,12 @@ class Mapping:
                 self.width, self.height, self.time, a.unstable_time_window // 2)
             # the render no longer matches the map: finalize must not reuse it
             self.model_map = None
+        t0 = _now()
         self.state, n_added = densify_step(
             self.state, frame_map, cam, model_map, is_first,
             self._uniform_draws(self.width * self.height), self.time,
             frame_id, a.add_capacity, cfg)
+        _pr("add/densify", t0, self.state.xyz)
         self._maybe_compact()
         return n_added
 
@@ -918,7 +1044,7 @@ class Mapping:
     def _count_scan(self, kind: str, reports: dict):
         self.scan_counts[kind] += 1
         self.scan_counts["iters"] += reports["iters"]
-        for k in ("sem_iters", "bg_renders", "sem_bg_renders"):
+        for k in ("sem_iters", "blends", "bg_renders", "sem_bg_renders"):
             self.scan_counts[k] += reports.get(k, 0)
         self.receipts["tile_dropped"] = max(self.receipts["tile_dropped"],
                                             reports["tile_dropped"])
@@ -936,8 +1062,10 @@ class Mapping:
         """Optimize the unstable Gaussians over the memory frames, then
         merge them back towards their values before the scan."""
         ts = self.settings.tile_size
+        t0 = _now()
         entries = []
-        for cam, fm in self.processed_frames:
+        for fi, (cam, fm) in enumerate(self.processed_frames):
+            ti = _now()
             # the tiles the unstable subset's rects cover (no render)
             tm = coverage_mask_state(self.state, cam, self.settings, "unstable")
             rm = im.tilemask_to_pixelmask(tm, ts, self.height, self.width)
@@ -946,6 +1074,9 @@ class Mapping:
                             "tile_mask": tm, "cam": cam,
                             "semantics_color": fm.get("semantics"),
                             "instance_img": fm.get("instance_img")})
+            _pr(f"local/range_{fi}", ti, tm)
+        _pr("local/range_renders", t0, [e["tile_mask"] for e in entries])
+        t0 = _now()
         frames = self._stack_frames(entries, ts)
         iters = int(self.args.gaussian_update_iter)
         rand_idx = self._rand_schedule(iters, len(entries))
@@ -963,9 +1094,12 @@ class Mapping:
                 self.state, opt_mask, frames, rand_idx, self._lrs(),
                 self._weights_t(), self.settings, self.usettings, iters,
                 self.args.add_depth_thres, use_bg=True)
+        _pr(f"local/optimize_scan x{iters}", t0, self.state.xyz)
         self._count_scan("local", reports)
+        t0 = _now()
         self.state = history_merge(self.state, history, confidence_pre,
                                    opt_mask, self.args.history_merge_max_weight)
+        _pr("local/history_merge", t0, self.state.xyz)
 
     def global_optimization(self, select_keyframe_num: int = -1,
                             is_end: bool = False):
@@ -977,7 +1111,13 @@ class Mapping:
         unstable Gaussian promoted first, then `final_global_iter` steps per
         keyframe over every keyframe, whole, with SSIM and without the depth
         term, the positions fixed, on an unpinned schedule. `is_end` also
-        promotes first."""
+        promotes first.
+
+        With a mesh (`parallel_enabled`) both run data-parallel
+        (`parallel.dp.dp_optimize_scan`): every step on the weighted mean
+        loss over all the selected keyframes, the stable subset rendered
+        whole (with the keyframes' tile masks on the keyframe scan, SSIM on
+        the final pass), in place of one keyframe a step."""
         if select_keyframe_num == -1 or is_end:
             self.state = gaussians_fix(self.state, -1.0)
         if self.counts()[1] == 0 or not self.keyframes:
@@ -997,31 +1137,46 @@ class Mapping:
                             "tile_mask": None if is_final else tm, "cam": cam,
                             "semantics_color": keymap.get("semantics"),
                             "instance_img": keymap.get("instance")})
+        if self.mesh is not None:
+            from ..parallel.dp import dp_slots
+            entries, fweight = dp_slots(
+                entries, None if is_final else select_keyframe_num,
+                self.mesh.size)
         frames = self._stack_frames(entries, ts)
+        a = self.args
         if is_final:
-            a = self.args
             iters = len(self.keyframes) * int(a.final_global_iter)
             lrs = self._lrs(a.feature_lr_coef, a.scaling_lr_coef,
                             a.rotation_lr_coef, position_lr=0.0)
+            weights = self._weights_t(depth=0.0)
             rand_idx = self._rand_schedule(iters, n_sel,
                                            second_half_last=False)
-            self.state, reports = optimize_scan(
-                self.state, frames, rand_idx, lrs, self._weights_t(depth=0.0),
+        else:
+            iters = int(a.gaussian_update_iter)
+            lrs = self._lrs(lr_scale=0.1, position_lr=0.0)
+            weights = self._weights_t()
+            rand_idx = self._rand_schedule(iters, n_sel)
+        if self.mesh is not None:
+            from ..parallel.dp import dp_optimize_scan
+            self.state, reports = dp_optimize_scan(
+                self.mesh, self.state, frames, fweight, lrs, weights,
                 self.settings, iters, gm.STABLE, a.add_depth_thres,
-                use_ssim=True, with_tile_mask=False, subset="stable")
-            self._count_scan("final", reports)
-            return
-        iters = int(self.args.gaussian_update_iter)
-        lrs = self._lrs(lr_scale=0.1, position_lr=0.0)
-        rand_idx = self._rand_schedule(iters, n_sel)
-        mask = touched_rows(self.state, frames, self.settings, gm.STABLE)
-        if int(mask.sum()) == 0:
-            return
-        self.state, reports = compact_optimize_scan(
-            self.state, mask, frames, rand_idx, lrs, self._weights_t(),
-            self.settings, self.settings, iters, self.args.add_depth_thres,
-            use_bg=False)
-        self._count_scan("global", reports)
+                subset="stable", with_tile_mask=not is_final,
+                use_ssim=is_final)
+        elif is_final:
+            self.state, reports = optimize_scan(
+                self.state, frames, rand_idx, lrs, weights, self.settings,
+                iters, gm.STABLE, a.add_depth_thres, use_ssim=True,
+                with_tile_mask=False, subset="stable")
+        else:
+            mask = touched_rows(self.state, frames, self.settings, gm.STABLE)
+            if int(mask.sum()) == 0:
+                return
+            self.state, reports = compact_optimize_scan(
+                self.state, mask, frames, rand_idx, lrs, weights,
+                self.settings, self.settings, iters, a.add_depth_thres,
+                use_bg=False)
+        self._count_scan("final" if is_final else "global", reports)
 
     def mapping(self, frame: Camera, frame_map: dict, frame_id: int,
                 object_layer=None) -> bool:
@@ -1042,7 +1197,9 @@ class Mapping:
             frame_map["obj_id_map"] = torch.as_tensor(
                 object_layer.obj_id_image(frame.width, frame.height),
                 device=self.device)
+        t0 = _now()
         self.gaussians_add(frame, frame_map, frame_id)
+        _pr("gaussians_add", t0, self.state.xyz)
         self.processed_frames.append((frame.render_inputs(self.device), frame_map))
         if len(self.processed_frames) > self.memory_length:
             self.processed_frames.pop(0)
@@ -1056,7 +1213,9 @@ class Mapping:
                 if not is_keyframe or self.counts()[1] <= 0:
                     self.local_optimize(frame)
                 else:
+                    t0 = _now()
                     self.global_optimization(self.args.global_keyframe_num)
+                    _pr("global_optimization", t0, self.state.xyz)
             if (object_layer is not None and (is_keyframe or frame_id == 0)
                     and self.object_mode == 1):
                 object_layer.optimize_objects()
@@ -1071,6 +1230,7 @@ class Mapping:
     def finalize_frame(self, out: dict, frame_map: dict):
         """Promote / error-remove / delete on the end-of-frame render `out`."""
         a = self.args
+        t0 = _now()
         self.state = gaussians_fix(self.state, a.stable_confidence_thres)
         if self.counts()[1] > 0:
             self.state = error_remove_from(
@@ -1078,6 +1238,7 @@ class Mapping:
                 a.add_depth_thres, a.add_normal_thres, self.time)
         self.state = gaussians_delete(self.state, self.time,
                                       a.unstable_time_window, unstable=True)
+        _pr("finalize(fix+err+del)", t0, self.state.xyz)
 
     # --------------------------------------------------------------
     def save_model(self, path: Optional[str] = None) -> str:

@@ -27,15 +27,11 @@ found one relaxes the keyframe chain (`pose_graph.close_loop`).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
 
+from ..utils.native import build_shared
 from .pose_graph import close_loop
 
 PKG = Path(__file__).resolve().parent.parent
@@ -44,35 +40,12 @@ BUILD_DIR = PKG / "_build"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
 
-def _target() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"liborb_backend_{tag}.so"
-
-
 def build_library() -> Path:
     """Compile `runtime/orb_backend.cc` into `_build/` unless a library of
     the same source and flags is already there; returns its path. Raises
     with the compiler's output when `g++` is missing or fails."""
-    target = _target()
-    if target.exists():
-        return target
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError(
-            "g++ not found on PATH: the feature pose backend is built from "
-            f"{SOURCE} at first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"{' '.join(cmd)} failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, target)
-    return target
+    return build_shared(SOURCE, BUILD_DIR, "liborb_backend", CXX_FLAGS, [],
+                        "the feature pose backend")
 
 
 _LIB = None

@@ -15,7 +15,11 @@ then runs the final whole-history pass, the final evaluation, writes the
 trajectory, the PLY map and `performance.json`, and, with the object
 layer, `save_obj/` (`objects.txt`, `iou.txt`) and the instance and
 semantic colour passes. `save_checkpoint` / `resume` stop and restart a
-run at any frame. Multi-device mapping is not ported yet.
+run at any frame. With `parallel_enabled` the system builds a mesh of
+`parallel_devices` devices of its own type (by default every one) and
+gives it to the mapper and the object layer: the keyframe scan and the
+final pass then run data-parallel over it, and MODE=1's object refinement
+shards over it by object (`parallel/dp.py`).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.monitor import Recorder
 from ..utils.ply import densify_point_cloud, write_point_normal_ply
 from ..utils.png import write_png
-from .mapper import Mapping
+from ..parallel.dp import make_mesh
+from .mapper import Mapping, _now, _pr
 from .renderer import render_instance, render_semantic
 from .tracker import Tracker
 
@@ -46,8 +51,6 @@ SYNC_METHODS = ("strict", "loose", "free")
 class SLAMSystem:
     def __init__(self, cfg: Config, cameras=None, device="cuda"):
         """Over `cameras`, or by default the frames of `cfg.dataset`."""
-        if cfg.parallel.parallel_enabled:
-            raise NotImplementedError("multi-device mapping is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         if cameras is None:
@@ -62,6 +65,12 @@ class SLAMSystem:
         self.tracker.async_pose = True
         self.object_layer = (ObjectLayer(cfg, self.device)
                              if cfg.opt.use_object else None)
+        if cfg.parallel.parallel_enabled:
+            mesh = make_mesh(cfg.parallel.parallel_devices or None,
+                             self.device.type)
+            self.mapping.mesh = mesh
+            if self.object_layer is not None:
+                self.object_layer.mesh = mesh
         self.save_path = cfg.map.save_path
         os.makedirs(self.save_path, exist_ok=True)
         self.metrics_history: list = []
@@ -97,8 +106,10 @@ class SLAMSystem:
                 time.sleep(wait)
                 t0 = time.perf_counter()
         self._last_step_t = t0
+        tp0 = _now()
         frame_map = self.tracker.map_preprocess(frame, frame_id)
         self.tracker.tracking(frame, frame_map)
+        _pr("tracker", tp0, frame_map["vertex_map_w"])
         if self.sync_method == "strict":
             self._sync()
         t1 = time.perf_counter()
@@ -110,7 +121,9 @@ class SLAMSystem:
         # the pre-densify render of `gaussians_add` (same pose, the map less
         # this frame's new points, whose error counters are zero) serves.
         if self.mapping.did_optimize or self.mapping.model_map is None:
+            tr = _now()
             out = self.mapping.get_render_output(frame.render_inputs(self.device))
+            _pr("get_render_output", tr, out["depth"])
         else:
             out = self.mapping.model_map
         self.mapping.finalize_frame(out, frame_map)

@@ -31,6 +31,7 @@ from ..models.cameras import Camera
 from ..utils import image as im
 from ..utils.math3d import eval_ate
 from .icp import IcpConfig, icp_pyramid
+from .mapper import _now, _pr
 from .pose_backend import PoseBackend
 
 
@@ -215,10 +216,14 @@ class Tracker:
             if self.pose_backend is not None:
                 # the native detection needs no pose: it runs while the
                 # device still computes the ICP result
+                t0 = _now()
                 self.pose_backend.detect(frame)
+                _pr("tracker/feature_detect", t0)
             # one readback of the pose and the residual
+            t0 = _now()
             host = torch.cat([pose10.reshape(-1), p2p.reshape(1).float(),
                               valid_ratio.reshape(1).float()]).cpu().numpy()
+            _pr("tracker/pose_sync", t0)
             pose10 = host[:16].reshape(4, 4).astype(np.float64)
             p2p, valid_ratio = float(host[16]), float(host[17])
             success = (p2p <= self.icp_cfg.fail_threshold
@@ -228,7 +233,9 @@ class Tracker:
                 self._dump_icp_failure(frame_map, p2p, pose10)
             if self.pose_backend is not None:
                 # fusion, the feature pose standing in where ICP failed
+                t0 = _now()
                 pose_t1_w = self.pose_backend.track(frame, pose10, success)
+                _pr("tracker/feature_backend", t0)
             else:
                 pose_t1_w = self._pose_np(self.pose_es[-1]) @ pose10
 

@@ -172,13 +172,18 @@ def sample_pixels(draws: torch.Tensor, select_mask: torch.Tensor,
     pixels with the largest draws are taken (the earlier index first among
     equal scores). Fixed output size `max_samples`, with a validity mask
     covering fewer masked pixels than requested and `want_num` below
-    `max_samples`. Returns (flat_indices, valid), both (max_samples,).
+    `max_samples`; a frame of fewer than `max_samples` pixels pads the
+    output with invalid entries (pixel 0). Returns (flat_indices, valid),
+    both (max_samples,).
     """
     flat_mask = select_mask.reshape(-1)
+    n = flat_mask.shape[0]
     scores = draws + flat_mask.float() * 2.0
     idx = torch.sort(scores, descending=True, stable=True).indices[:max_samples]
+    if n < max_samples:
+        idx = torch.cat([idx, idx.new_zeros(max_samples - n)])
     rank = torch.arange(max_samples, device=idx.device)
-    valid = flat_mask[idx] & (rank < want_num)
+    valid = flat_mask[idx] & (rank < want_num) & (rank < n)
     return idx, valid
 
 

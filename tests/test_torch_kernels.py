@@ -583,3 +583,49 @@ def test_blend_fwd_kernel_leaves_saturated_pixels(cuda_device, with_bg):
     assert (hit[1][left] >= 0).all() and (hit[1][~left] == -1).all()
     assert (aux[1, left, 6] < PARAMS.T_threshold).all()
     assert stats["pairs"] < 0.35 * 256 * 320
+
+
+@pytest.mark.parametrize("kernel", ["blend_fwd", "blend_bwd"])
+@pytest.mark.parametrize("which", ["tile_offsets", "tile_counts"])
+def test_blend_kernels_refuse_tile_lists_on_another_device(kernel, which):
+    """Each kernel reads its tile lists by pointer on `feats`' device, so a
+    list on any other device is refused, not copied."""
+    feats, b, K, W, H = scene_entries("cpu", P=200, W=48, H=32)
+    T = b.tile_offsets.shape[0] - 1
+    lists = {"tile_offsets": b.tile_offsets, "tile_counts": b.tile_counts}
+    lists[which] = torch.empty_like(lists[which], device="meta")
+    args = (feats, lists["tile_offsets"], lists["tile_counts"], T, 16, W, K,
+            PARAMS, (0.0, 0.0, 0.0))
+    if kernel == "blend_bwd":
+        color, aux, _ = blend_blocks_ref(feats, b.tile_offsets, b.tile_counts,
+                                         *args[3:])
+        args = args + (color, aux, torch.ones_like(color))
+    fn = blend_fwd if kernel == "blend_fwd" else blend_bwd
+    with pytest.raises(ValueError, match=f"{which} must be on feats' device"):
+        fn(*args)
+
+
+@pytest.mark.cuda
+def test_blend_kernels_launch_on_their_tensors_device(cuda_device):
+    """With another card current (where there is one), each kernel runs on
+    its tensors' card and gives what it gives there with that card
+    current: K1's maps bit for bit, K2's gradient rows bit for bit."""
+    n = torch.cuda.device_count()
+    for d in range(n):
+        dev = torch.device("cuda", d)
+        feats, b, K, W, H = scene_entries(dev)
+        T = b.tile_offsets.shape[0] - 1
+        args = (feats, b.tile_offsets, b.tile_counts, T, 16, W, K, PARAMS,
+                (0.2, 0.3, 0.4))
+        dcolor = random_cotangent(T, dev, 5)
+        results = []
+        for current in (d, (d + 1) % n):
+            with torch.cuda.device(current):
+                color, aux, nt = blend_fwd(*args, tile_order=b.tile_order)
+                dfeats = blend_bwd(*args, color, aux, dcolor,
+                                   tile_order=b.tile_order)
+            torch.cuda.synchronize(dev)
+            assert color.device == aux.device == dfeats.device == dev
+            results.append((color, aux, nt, dfeats))
+        for a, r in zip(*results):
+            assert torch.equal(a, r)
