@@ -7,13 +7,15 @@ against their plain PyTorch versions.
 
 Path A is the main path of `bench.py`'s configuration (steps 1-5), path B
 the semantic and instance supervision with the objects in MODE=0 (step
-6), then the evaluation CLIs on path B's output (step 7).
+6), then the evaluation CLIs on path B's output (step 7), path C and the
+bench (step 8), and path D, a Replica-layout sequence through the
+dataset reader and the `run_slam` CLI (step 9).
 
 1. Builds the two blend kernels, K1 forward (`dqo_map_tpu_torch/csrc/
    blend_fwd.cu`) and K2 backward (`csrc/blend_bwd.cu`), with nvcc for
    sm_90a, one nvcc per source, both started together; then the feature
-   pose backend (`runtime/orb_backend.cc`) with g++ into
-   `dqo_map_tpu_torch/_build/`.
+   pose backend (`runtime/orb_backend.cc`) and the JPEG decoder
+   (`csrc/jpeg_decode.cc`) with g++ into `dqo_map_tpu_torch/_build/`.
 2. Runs the port's main path, `SLAMSystem.run()`, in bench.py's
    configuration (bench.py:73-116) over synthetic RGB-D frames with
    detections at the benchmark's Replica office0 scale: 1200x680, 40,800
@@ -103,6 +105,20 @@ the semantic and instance supervision with the objects in MODE=0 (step
    `make_mesh` (TSDF fusion and marching tetrahedra along the run's
    trajectory, scored against the room), `ablate_assoc` on the synthetic
    sequence, and `per_object_mesh_eval` on the live map.
+8. Path C (`run_path_c`) and the bench phase (`bench_phase`).
+9. Path D, a real dataset's entry path: `read_jpeg` against PIL's hashes
+   of the committed fixtures (`tests/torch_fixtures/jpeg/`); path A's
+   frames written in Replica's layout under `chiprun_out/replica/`
+   (`results/frame%06d.jpg` through `write_jpeg` at quality 95, 4:2:0,
+   `results/depth%06d.png` 16-bit at Replica's scale 6553.5, `traj.txt`,
+   `../cam_params.json`); the port's Replica reader must return the
+   depth exactly and the colour at least 40 dB from its source; then the
+   `run_slam` CLI as a subprocess on a child of
+   `configs/replica/office0.yaml` over those 12 frames, into
+   `chiprun_out/run_replica/`: it must exit 0, write `result.json` and
+   the trajectory, and launch K1 and K2, both variants. Prints the
+   decoder's and the resize's host times, path D's `run()` seconds and
+   its quality at frame 11 beside path A's.
 
 With `--profile N` the last N frames of step 2 run under `torch.profiler`:
 it prints the device time by kernel and the device's busy share of that
@@ -191,6 +207,34 @@ RUN_C_DIR = os.path.join("chiprun_out", "run_dp")
 BENCH_DIR = os.path.join("chiprun_out", "bench")
 EVAL_DIR = os.path.join("chiprun_out", "eval")
 CLI_DIR = os.path.join("chiprun_out", "cli")
+# path D: the room in Replica's layout (`office0/` and `cam_params.json`
+# beside it) and the run on it
+REPLICA_DIR = os.path.join("chiprun_out", "replica")
+RUN_D_DIR = os.path.join("chiprun_out", "run_replica")
+REPLICA_SCALE = 6553.5        # Replica's depth scale (its cam_params.json)
+JPEG_FIXTURES = os.path.join("tests", "torch_fixtures", "jpeg")
+MIN_JPEG_PSNR = 40.0          # the written colour against its source, dB
+# the run_slam CLI as `python -m dqo_map_tpu_torch.cli.run_slam` runs it
+# (its arguments after the code), its `run()` timed to the card's end,
+# then the kernels' launch counts of the whole process
+RUN_SLAM_COUNTED = """
+import json, runpy, time
+import torch
+from dqo_map_tpu_torch.ops import blend_cuda
+from dqo_map_tpu_torch.slam.system import SLAMSystem
+inner, seconds = SLAMSystem.run, []
+def run(self, *a, **kw):
+    t0 = time.perf_counter()
+    out = inner(self, *a, **kw)
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+    return out
+SLAMSystem.run = run
+runpy.run_module("dqo_map_tpu_torch.cli.run_slam", run_name="__main__",
+                 alter_sys=True)
+print("RUN_S " + json.dumps(seconds))
+print("LAUNCHES " + json.dumps(blend_cuda.LAUNCHES))
+"""
 # the keys of the reference CLI's result.json (`dqo_map_tpu/cli/run_slam.py`
 # over `SLAMSystem.run`, with the object layer's receipts)
 RESULT_KEYS = {"psnr", "ssim", "ms_ssim", "color_l1", "depth_l1_cm",
@@ -1724,6 +1768,161 @@ def bench_phase(card: str, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# path D: a Replica-layout sequence through the readers and the run_slam CLI
+# ---------------------------------------------------------------------------
+
+def check_jpeg_fixtures(card: str):
+    """`read_jpeg` on every committed fixture against the shape and the
+    SHA-256 of the array PIL decodes it to (`hashes.json`)."""
+    import hashlib
+    from dqo_map_tpu_torch.utils.jpeg import read_jpeg
+    with open(os.path.join(JPEG_FIXTURES, "hashes.json")) as f:
+        want = json.load(f)
+    bad = []
+    for name, w in sorted(want.items()):
+        img = read_jpeg(os.path.join(JPEG_FIXTURES, name))
+        if list(img.shape) != w["shape"] or \
+                hashlib.sha256(img.tobytes()).hexdigest() != w["sha256"]:
+            bad.append(name)
+    print(f"read_jpeg on the {len(want)} JPEG fixtures: "
+          f"{len(want) - len(bad)} equal to PIL's arrays [{card}]")
+    if bad or not want:
+        raise RuntimeError(f"read_jpeg differs from PIL on {bad}")
+
+
+def write_replica(cams, root: str) -> list:
+    """The frames in Replica's layout under `root`: `office0/results/
+    frame%06d.jpg` (`write_jpeg`, quality 95, 4:2:0) and `depth%06d.png`
+    (16-bit at `REPLICA_SCALE`), `office0/traj.txt` (each camera-to-world
+    pose, row-major) and `cam_params.json` beside `office0/`. Returns the
+    16-bit depth frames written."""
+    from dqo_map_tpu_torch.utils.jpeg import write_jpeg
+    from dqo_map_tpu_torch.utils.png import write_png
+    shutil.rmtree(root, ignore_errors=True)
+    results = os.path.join(root, "office0", "results")
+    os.makedirs(results)
+    c = cams[0]
+    with open(os.path.join(root, "cam_params.json"), "w") as f:
+        json.dump({"camera": {"w": c.width, "h": c.height, "fx": c.fx,
+                              "fy": c.fy, "cx": c.cx, "cy": c.cy,
+                              "scale": REPLICA_SCALE}}, f)
+    depths, lines = [], []
+    for i, cam in enumerate(cams):
+        rgb = np.clip(np.rint(cam.image * 255), 0, 255).astype(np.uint8)
+        write_jpeg(os.path.join(results, f"frame{i:06d}.jpg"), rgb, 95,
+                   "4:2:0")
+        d16 = np.clip(np.rint(cam.depth * REPLICA_SCALE), 0,
+                      65535).astype(np.uint16)
+        write_png(os.path.join(results, f"depth{i:06d}.png"), d16)
+        depths.append(d16)
+        lines.append(" ".join(repr(float(v)) for v in cam.pose_gt.reshape(-1)))
+    with open(os.path.join(root, "office0", "traj.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return depths
+
+
+def run_path_d(cams, result_a: dict, seconds_a: float, card: str):
+    """Path D: path A's frames written in Replica's layout at their full
+    size; the port's Replica reader must return the written depth exactly
+    and the colour at least `MIN_JPEG_PSNR` dB from its source; then the
+    run_slam CLI on a child of `configs/replica/office0.yaml` (12 frames)
+    on the card as a subprocess, which must exit 0, write `result.json`
+    and the trajectory, and launch K1 and K2, both variants."""
+    import torch
+    from dqo_map_tpu_torch.data.readers import read_replica
+    from dqo_map_tpu_torch.utils.jpeg import read_jpeg
+    from dqo_map_tpu_torch.utils.resize import resize_like_pil
+    check_jpeg_fixtures(card)
+    t0 = time.perf_counter()
+    depths = write_replica(cams, REPLICA_DIR)
+    scene = os.path.join(REPLICA_DIR, "office0")
+    write_s = time.perf_counter() - t0
+    read = read_replica(scene, frame_num=len(cams))
+    if len(read) != len(cams):
+        raise RuntimeError(f"read_replica read {len(read)} frames of "
+                           f"{len(cams)}")
+    psnrs = []
+    for cam, got, d16 in zip(cams, read, depths):
+        if not np.array_equal(got.depth, d16.astype(np.float32) /
+                              REPLICA_SCALE):
+            raise RuntimeError(f"frame {got.uid}: the depth read is not the "
+                               "written 16-bit values over the scale")
+        mse = float(np.mean((got.image - cam.image) ** 2))
+        psnrs.append(10 * math.log10(1.0 / mse))
+    jpgs = sorted(os.listdir(os.path.join(scene, "results")))
+    jpgs = [os.path.join(scene, "results", j) for j in jpgs
+            if j.endswith(".jpg")]
+    decode_ms = []
+    for j in jpgs:
+        t0 = time.perf_counter()
+        read_jpeg(j)
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+    big = np.random.default_rng(0).integers(0, 256, (1440, 1920, 3),
+                                            dtype=np.uint8)
+    resize_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        resize_like_pil(big, (256, 192))
+        resize_ms.append(1e3 * (time.perf_counter() - t0))
+    c = cams[0]
+    kb = sum(os.path.getsize(j) for j in jpgs) / len(jpgs) / 1e3
+    print(f"path D: {len(cams)} frames of {c.width}x{c.height} written in "
+          f"Replica's layout in {write_s:.2f} s ({kb:.1f} kB a JPEG); "
+          f"read_replica: depth exact, colour PSNR {min(psnrs):.2f}-"
+          f"{max(psnrs):.2f} dB against the source [{card}]")
+    print(f"path D: read_jpeg {float(np.median(decode_ms)):.2f} ms of host "
+          f"a {c.width}x{c.height} frame (median of {len(decode_ms)}; min "
+          f"{min(decode_ms):.2f}, max {max(decode_ms):.2f}); resize_like_pil "
+          f"1920x1440 -> 256x192 {float(np.median(resize_ms)):.1f} ms "
+          f"(median of 3) [{card}]")
+    if min(psnrs) < MIN_JPEG_PSNR:
+        raise RuntimeError(f"the written colour is {min(psnrs):.2f} dB from "
+                           f"its source, under {MIN_JPEG_PSNR}")
+
+    shutil.rmtree(RUN_D_DIR, ignore_errors=True)
+    cfg = os.path.join(REPLICA_DIR, "office0.yaml")
+    with open(cfg, "w") as f:
+        # the repo's office0 configuration, on the written sequence
+        f.write("parent: configs/replica/office0.yaml\n"
+                f"source_path: {scene}\nsave_path: {RUN_D_DIR}\n"
+                f"frame_num: {len(cams)}\n")
+    cmd = [sys.executable, "-c", RUN_SLAM_COUNTED, "--config", cfg, "--quiet"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"run_slam on {cfg} exited {res.returncode}:\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    tagged = {line.split(" ", 1)[0]: json.loads(line.split(" ", 1)[1])
+              for line in res.stdout.splitlines()
+              if line.startswith(("RUN_S ", "LAUNCHES "))}
+    launches, run_s = tagged["LAUNCHES"], tagged["RUN_S"]
+    with open(os.path.join(RUN_D_DIR, "result.json")) as f:
+        result = json.load(f)
+    traj = os.path.join(RUN_D_DIR, "save_traj", "pose_es.npy")
+    print(f"path D: run_slam on {cfg} (configs/replica/office0.yaml, "
+          f"{len(cams)} frames): exit 0 in {wall:.1f} s; run() "
+          f"{run_s[0]:.2f} s against path A's {seconds_a:.2f} s; launches "
+          f"{launches} [{card}]")
+    print(f"path D at frame {len(cams) - 1}, after the final pass: PSNR "
+          f"{result['psnr']:.2f} dB, depth-L1 {result['depth_l1_cm']:.3f} cm, "
+          f"ATE {result['ate_cm']:.4f} cm; path A's {result_a['psnr']:.2f} "
+          f"dB, {result_a['depth_l1_cm']:.3f} cm, {result_a['ate_cm']:.4f} cm "
+          f"[{card}]")
+    missing = [k for k in KERNELS if not launches.get(k)]
+    quality_ok = all(math.isfinite(result[k]) for k in
+                     ("psnr", "depth_l1_cm", "ate_cm")) and result["psnr"] > 15
+    if missing or not quality_ok or len(run_s) != 1 or \
+            len(np.load(traj)) != len(cams):
+        raise RuntimeError(f"path D off: kernels never launched {missing}, "
+                           f"result {result}, run() calls {len(run_s)}")
+    # the frames are remade by every run; the run's own outputs stay
+    shutil.rmtree(os.path.join(REPLICA_DIR, "office0"))
+    shutil.rmtree(os.path.join(RUN_D_DIR, "save_model"), ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=12)
@@ -1753,6 +1952,11 @@ def main(argv=None) -> int:
     lib = build_library()
     print(f"built the feature backend {lib.name} with g++ in "
           f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+    from dqo_map_tpu_torch.utils.jpeg import build_library as build_decoder
+    t0 = time.perf_counter()
+    lib = build_decoder()
+    print(f"built the JPEG decoder {lib.name} with g++ in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     rec = Recorder()
     (system, cams, infos, final, result, tail, launches, seconds, window,
@@ -1869,6 +2073,9 @@ def main(argv=None) -> int:
     del system_c
     rec.last.clear()
     bench_phase(card, device)
+    # path D: path A's frames read back from Replica's layout, and the
+    # run_slam CLI on office0's configuration over them
+    run_path_d(cams, result, seconds, card)
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Dataset readers: Replica, TUM, RO-MAP/Cube-Diorama, ScanNet++-style,
 COLMAP, Blender, synthetic (a copy of `dqo_map_tpu/data/readers.py` that
-builds the port's `Camera`).
+builds the port's `Camera` and reads its frames without PIL: PNG through
+`utils/png.py`, JPEG through `utils/jpeg.py`, resizes through
+`utils/resize.py`, each giving PIL's arrays exactly).
 
 Equivalent of `scene/dataset_readers.py` + `scene/__init__.py` +
 `utils/camera_utils.py`. All readers emit `Camera` objects with
@@ -20,44 +22,38 @@ from typing import List, Optional
 import numpy as np
 
 from ..models.cameras import Camera
+from ..utils.jpeg import read_jpeg
+from ..utils.png import SIGNATURE as PNG_SIGNATURE
 from ..utils.png import read_png
+from ..utils.resize import resize_like_pil
 from .detections import load_detection_json
 
 
-def _pil_image(path: str, why: str):
-    """`PIL.Image.open(path)`, or an `ImportError` that names the file and
-    why it needs PIL where PIL is not installed."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(f"{path}: {why} needs PIL, which is not "
-                          "installed") from e
-    return Image.open(path)
+def _read_frame(path: str) -> np.ndarray:
+    """A PNG or JPEG frame as the uint8 / uint16 array PIL gives for it,
+    told apart by the file's first bytes; `ValueError` naming the file for
+    any other format."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == PNG_SIGNATURE:
+        return read_png(path)
+    if head[:2] == b"\xff\xd8":
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def _load_image(path: str, size=None) -> np.ndarray:
-    """A colour image as float32 in [0, 1]. A PNG at its own size is
-    decoded by `utils/png.py`; a JPEG, or a resize to another (W, H)
-    `size`, goes through PIL."""
-    if path.lower().endswith(".png"):
-        img = read_png(path)
-        if size is None or tuple(size) == (img.shape[1], img.shape[0]):
-            return img.astype(np.float32) / 255.0
-        why = f"resizing a {img.shape[1]}x{img.shape[0]} frame to {size}"
-    else:
-        why = "reading a JPEG (or other non-PNG) frame"
-    img = _pil_image(path, why)
+    """A colour image as float32 in [0, 1], resized to (W, H) `size` as PIL
+    resizes (BICUBIC) where that differs from its own."""
+    img = _read_frame(path)
     if size is not None:
-        img = img.resize(size)
-    return np.asarray(img, np.float32) / 255.0
+        img = resize_like_pil(img, size)
+    return img.astype(np.float32) / 255.0
 
 
 def _load_depth(path: str, scale: float) -> np.ndarray:
     """A depth image in metres: its samples over `scale`."""
-    if path.lower().endswith(".png"):
-        return read_png(path).astype(np.float32) / scale
-    return np.asarray(_pil_image(path, "reading a non-PNG depth frame"),
-                      np.float32) / scale
+    return _read_frame(path).astype(np.float32) / scale
 
 
 def _relative_poses(poses: List[np.ndarray]) -> List[np.ndarray]:

@@ -1,8 +1,8 @@
-"""Builds the port's native host libraries from the C++ sources under
-`runtime/` with `g++`, into `dqo_map_tpu_torch/_build/`, each under a name
-keyed by the hash of its source and its command's flags. `runtime/` is
-only read; a missing compiler or a failed build raises with the compiler's
-output."""
+"""Builds the port's native host libraries from their C++ sources (under
+`runtime/`, only read, and `dqo_map_tpu_torch/csrc/`) with `g++`, into
+`dqo_map_tpu_torch/_build/`, each under a name keyed by the hash of its
+source and its command's flags. A missing compiler or a failed build
+raises with the compiler's output."""
 
 from __future__ import annotations
 

@@ -23,18 +23,21 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def encode_png(img: np.ndarray) -> bytes:
     """An (H, W) grey or (H, W, 3) RGB uint8 image as the bytes of an 8-bit
-    PNG, every row with filter 0."""
+    PNG, or an (H, W) uint16 grey image (a depth frame) as a 16-bit one,
+    every row with filter 0."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
-            img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(f"expected (H, W) or (H, W, 3) uint8, got "
-                         f"{img.dtype} {img.shape}")
+    grey16 = img.dtype == np.uint16 and img.ndim == 2
+    if not grey16 and (img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] != 3)):
+        raise ValueError(f"expected (H, W) or (H, W, 3) uint8 or (H, W) "
+                         f"uint16, got {img.dtype} {img.shape}")
     H, W = img.shape[:2]
     colour_type = 2 if img.ndim == 3 else 0
-    rows = img.reshape(H, -1)
+    rows = (img.astype(">u2") if grey16 else img).reshape(H, -1).view(np.uint8)
     raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1)
     return (SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour_type,
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H,
+                                          16 if grey16 else 8, colour_type,
                                           0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _chunk(b"IEND", b""))

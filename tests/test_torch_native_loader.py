@@ -9,10 +9,8 @@ CPU.
   colour samples and turns 16-bit grey-alpha into RGBA, and so does
   `read_png`. The PNGs are written here by a small encoder that applies
   the filters the PNG specification defines.
-- The readers decode PNG frames without PIL (PIL hidden from the
-  import), exactly as they did through PIL; a JPEG frame or a resize
-  still goes through PIL, and without it raises an `ImportError` that
-  names the file.
+- The readers decode PNG and JPEG frames and resize them without PIL
+  (PIL hidden from the import), exactly as PIL does.
 - The native loader: its own g++ build into `_build/`, cached by hash;
   a failed build raising with the compiler's output; `decode_depth_png`
   and `NativeDepthLoader` (prefetch, get, evict) against the JAX
@@ -132,10 +130,8 @@ def test_readers_decode_png_frames_without_pil(tmp_path, monkeypatch):
                             np.float32) / 6553.5
     want_colour = _pil_load_image(tmp_path / "frame.png", (20, 12))
     want_jpg = _pil_load_image(tmp_path / "frame.jpg", (20, 12))
-    got_jpg = readers._load_image(str(tmp_path / "frame.jpg"), (20, 12))
-    assert np.array_equal(got_jpg, want_jpg)                 # PIL's
-    assert readers._load_image(str(tmp_path / "frame.png"),
-                               (10, 6)).shape == (6, 10, 3)  # PIL's resize
+    want_small = _pil_load_image(tmp_path / "frame.png", (10, 6))
+    want_jpg_small = _pil_load_image(tmp_path / "frame.jpg", (10, 6))
 
     monkeypatch.setitem(sys.modules, "PIL", None)            # no PIL
     got = readers._load_depth(str(tmp_path / "depth.png"), 6553.5)
@@ -143,11 +139,13 @@ def test_readers_decode_png_frames_without_pil(tmp_path, monkeypatch):
     for size in ((20, 12), None):
         got = readers._load_image(str(tmp_path / "frame.png"), size)
         assert np.array_equal(got, want_colour)
-    with pytest.raises(ImportError, match="frame.jpg: reading a JPEG"):
-        readers._load_image(str(tmp_path / "frame.jpg"), (20, 12))
-    with pytest.raises(ImportError, match="frame.png: resizing a 20x12 "
-                                          "frame to \\(10, 6\\) needs PIL"):
-        readers._load_image(str(tmp_path / "frame.png"), (10, 6))
+    # the JPEG and the resize give PIL's arrays without PIL
+    got_jpg = readers._load_image(str(tmp_path / "frame.jpg"), (20, 12))
+    assert got_jpg.dtype == np.float32 and np.array_equal(got_jpg, want_jpg)
+    got = readers._load_image(str(tmp_path / "frame.png"), (10, 6))
+    assert got.shape == (6, 10, 3) and np.array_equal(got, want_small)
+    got = readers._load_image(str(tmp_path / "frame.jpg"), (10, 6))
+    assert np.array_equal(got, want_jpg_small)
 
 
 @pytest.fixture(scope="module")
