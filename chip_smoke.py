@@ -8,8 +8,9 @@ against their plain PyTorch versions.
 Path A is the main path of `bench.py`'s configuration (steps 1-5), path B
 the semantic and instance supervision with the objects in MODE=0 (step
 6), then the evaluation CLIs on path B's output (step 7), path C and the
-bench (step 8), and path D, a Replica-layout sequence through the
-dataset reader and the `run_slam` CLI (step 9).
+bench (step 8), path D, a Replica-layout sequence through the dataset
+reader and the `run_slam` CLI (step 9), and the no-wait phase, ICP-only
+tracking in loose sync under the sync debug mode (step 10).
 
 1. Builds the two blend kernels, K1 forward (`dqo_map_tpu_torch/csrc/
    blend_fwd.cu`) and K2 backward (`csrc/blend_bwd.cu`), with nvcc for
@@ -106,10 +107,16 @@ dataset reader and the `run_slam` CLI (step 9).
    trajectory, scored against the room), `ablate_assoc` on the synthetic
    sequence, and `per_object_mesh_eval` on the live map.
 8. Path C (`run_path_c`) and the bench phase (`bench_phase`).
-9. Path D, a real dataset's entry path: `read_jpeg` against PIL's hashes
-   of the committed fixtures (`tests/torch_fixtures/jpeg/`); path A's
+9. Path D, a real dataset's entry path: `read_jpeg` and `read_png`
+   against PIL's hashes of the committed fixtures
+   (`tests/torch_fixtures/jpeg/`: baseline, progressive, Adobe RGB;
+   `tests/torch_fixtures/png/`: palette, 1-, 2- and 4-bit grey, Adam7),
+   `encode_jpeg` against PIL's files of the encoder's input at quality 75
+   and 85 (4:2:0 and grey), byte for byte, with the times of `read_jpeg`
+   on the progressive 1200x680 room and of `encode_jpeg` on it; path A's
    frames written in Replica's layout under `chiprun_out/replica/`
    (`results/frame%06d.jpg` through `write_jpeg` at quality 95, 4:2:0,
+   PIL's encoder's bytes,
    `results/depth%06d.png` 16-bit at Replica's scale 6553.5, `traj.txt`,
    `../cam_params.json`); the port's Replica reader must return the
    depth exactly and the colour at least 40 dB from its source; then the
@@ -119,6 +126,13 @@ dataset reader and the `run_slam` CLI (step 9).
    the trajectory, and launch K1 and K2, both variants. Prints the
    decoder's and the resize's host times, path D's `run()` seconds and
    its quality at frame 11 beside path A's.
+10. The no-wait phase (`nowait_phase`): path A's configuration without
+   the feature backend, loose sync, 6 frames through `SLAMSystem.step`;
+   from frame 2 on the tracker's `map_preprocess` and `tracking` run
+   under `torch.cuda.set_sync_debug_mode("error")`, so a synchronising
+   call there fails the run. Prints the tracking stage's host ms a frame
+   and on how many frames tracking returned before its residual's host
+   copy had landed.
 
 With `--profile N` the last N frames of step 2 run under `torch.profiler`:
 it prints the device time by kernel and the device's busy share of that
@@ -213,6 +227,16 @@ REPLICA_DIR = os.path.join("chiprun_out", "replica")
 RUN_D_DIR = os.path.join("chiprun_out", "run_replica")
 REPLICA_SCALE = 6553.5        # Replica's depth scale (its cam_params.json)
 JPEG_FIXTURES = os.path.join("tests", "torch_fixtures", "jpeg")
+PNG_FIXTURES = os.path.join("tests", "torch_fixtures", "png")
+ROOM_PROGRESSIVE = "room_prog_q75_1200x680.jpg"
+# the no-wait phase: path A without the feature backend, its tracking
+# under the sync debug mode from this frame on
+NOWAIT_DIR = os.path.join("chiprun_out", "run_nowait")
+NOWAIT_FRAMES = 6
+NOWAIT_FROM = 2
+# the card's spin queued before each guarded `tracking` call, ~1 s at the
+# H100's 1980 MHz: longer than the call's host time by some 10x
+NOWAIT_SLEEP_CYCLES = 2_000_000_000
 MIN_JPEG_PSNR = 40.0          # the written colour against its source, dB
 # the run_slam CLI as `python -m dqo_map_tpu_torch.cli.run_slam` runs it
 # (its arguments after the code), its `run()` timed to the card's end,
@@ -1068,8 +1092,9 @@ def check_outputs(system) -> str:
              os.path.join(RUN_DIR, "performance.json"),
              os.path.join(RUN_DIR, "save_obj", "objects.txt"),
              os.path.join(RUN_DIR, "save_obj", "iou.txt")]
-    want += [os.path.join(RUN_DIR, "eval_render", f"{k}.png") for k in (
-        "color_compare", "depth_compare", "instance", "semantic")]
+    want += [os.path.join(RUN_DIR, "eval_render", k) for k in (
+        "color_compare.jpg", "depth_compare.jpg", "instance.png",
+        "semantic.png")]
     missing = [f for f in want if not os.path.isfile(f)]
     if not missing:
         with open(os.path.join(RUN_DIR, "save_obj", "objects.txt")) as f:
@@ -1207,6 +1232,7 @@ def cli_phase(merge_ply: str, card: str, device):
           f"{result['depth_l1_cm']:.3f} cm, ATE {result['ate_cm']:.4f} cm, "
           f"{result['n_objects']} objects")
 
+    from dqo_map_tpu_torch.utils.jpeg import read_jpeg
     from dqo_map_tpu_torch.utils.png import read_png
     traj = os.path.join(RUN_DIR, "save_traj", "pose_es.npy")
     fly = os.path.join(CLI_DIR, "render_traj")
@@ -1255,16 +1281,16 @@ def cli_phase(merge_ply: str, card: str, device):
     if thread.is_alive():
         raise RuntimeError("the viewer's server thread did not stop")
     kind, body, render_s = got["/render?yaw=0.2&mode=color%2Bobj"]
-    view_png = os.path.join(CLI_DIR, "viewer.png")
-    with open(view_png, "wb") as f:
+    view_jpg = os.path.join(CLI_DIR, "viewer.jpg")
+    with open(view_jpg, "wb") as f:
         f.write(body)
-    img = read_png(view_png)
+    img = read_jpeg(view_jpg)
     stats = json.loads(got["/stats"][1])
     print(f"CLI: viewer on {RUN_DIR}: / {got['/'][0]}, /stats {stats}, "
           f"/render {kind} {img.shape} in {1e3 * render_s:.1f} ms, "
           f"{len(view.objects)} objects and {len(view.frusta)} frusta drawn "
           f"[{card}]")
-    if not (got["/"][0] == "text/html" and kind == "image/png"
+    if not (got["/"][0] == "text/html" and kind == "image/jpeg"
             and img.shape == (480, 640, 3) and stats["n_gaussians"] > 0
             and view.objects):
         raise RuntimeError(f"viewer off: {kind} {img.shape}, {stats}")
@@ -1772,23 +1798,152 @@ def bench_phase(card: str, device) -> dict:
 # path D: a Replica-layout sequence through the readers and the run_slam CLI
 # ---------------------------------------------------------------------------
 
-def check_jpeg_fixtures(card: str):
-    """`read_jpeg` on every committed fixture against the shape and the
-    SHA-256 of the array PIL decodes it to (`hashes.json`)."""
-    import hashlib
-    from dqo_map_tpu_torch.utils.jpeg import read_jpeg
-    with open(os.path.join(JPEG_FIXTURES, "hashes.json")) as f:
+def check_fixtures(folder: str, read, what: str, card: str):
+    """`read` on every committed fixture of `folder` against the shape (and
+    where recorded the dtype) and the SHA-256 of the array PIL decodes it
+    to (`hashes.json`, hashed by `make_png_fixtures.py::digest`)."""
+    from make_png_fixtures import digest
+    with open(os.path.join(folder, "hashes.json")) as f:
         want = json.load(f)
     bad = []
     for name, w in sorted(want.items()):
-        img = read_jpeg(os.path.join(JPEG_FIXTURES, name))
-        if list(img.shape) != w["shape"] or \
-                hashlib.sha256(img.tobytes()).hexdigest() != w["sha256"]:
+        img = read(os.path.join(folder, name))
+        if list(img.shape) != w["shape"] or digest(img) != w["sha256"] or \
+                str(img.dtype) != w.get("dtype", "uint8"):
             bad.append(name)
-    print(f"read_jpeg on the {len(want)} JPEG fixtures: "
+    print(f"{what} on the {len(want)} fixtures of {folder}: "
           f"{len(want) - len(bad)} equal to PIL's arrays [{card}]")
     if bad or not want:
-        raise RuntimeError(f"read_jpeg differs from PIL on {bad}")
+        raise RuntimeError(f"{what} differs from PIL on {bad}")
+
+
+def check_jpeg_fixtures(card: str):
+    """The readers without PIL against PIL's arrays of the committed
+    fixtures: `read_jpeg` on the JPEGs (baseline, progressive, Adobe RGB,
+    the encoder's references), `read_png` on the PNGs (palette, 1-, 2- and
+    4-bit grey, Adam7); `encode_jpeg` on the encoder's input at quality
+    75 and 85 (4:2:0 and grey) must write PIL's files byte for byte, and
+    so decode to their hashes. Prints `read_jpeg`'s time on the
+    progressive 1200x680 room and `encode_jpeg`'s on that frame."""
+    from dqo_map_tpu_torch.utils.jpeg import encode_jpeg, read_jpeg
+    from dqo_map_tpu_torch.utils.png import read_png
+    sys.path.insert(0, os.path.join("tests", "torch_fixtures"))
+    from make_jpeg_fixtures import ENCODER, encoder_input
+    check_fixtures(JPEG_FIXTURES, read_jpeg, "read_jpeg", card)
+    check_fixtures(PNG_FIXTURES, read_png, "read_png", card)
+    for name, (kind, q) in sorted(ENCODER.items()):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            want = f.read()
+        if encode_jpeg(encoder_input(grey=kind == "grey"), q) != want:
+            raise RuntimeError(f"encode_jpeg at quality {q} ({kind}) does not "
+                               f"write PIL's {name}")
+    print(f"encode_jpeg: PIL's {len(ENCODER)} files byte for byte (quality "
+          f"75 and 85, 4:2:0 and grey) [{card}]")
+    room = os.path.join(JPEG_FIXTURES, ROOM_PROGRESSIVE)
+    frame = read_jpeg(room)
+    read_ms, enc_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        read_jpeg(room)
+        read_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        encode_jpeg(frame, 75)
+        enc_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"read_jpeg {float(np.median(read_ms)):.2f} ms a progressive "
+          f"{frame.shape[1]}x{frame.shape[0]} frame "
+          f"({os.path.getsize(room) / 1e3:.1f} kB), encode_jpeg "
+          f"{float(np.median(enc_ms)):.1f} ms for it at quality 75, 4:2:0 "
+          f"(medians of 5, host) [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# the no-wait phase: ICP-only tracking in loose sync waits for no device work
+# ---------------------------------------------------------------------------
+
+def nowait_phase(args, device, card: str):
+    """Path A's configuration with the feature backend off, in loose sync,
+    for `NOWAIT_FRAMES` frames through `SLAMSystem.step`. From frame
+    `NOWAIT_FROM` on, the tracker's `map_preprocess` and `tracking` run
+    under `torch.cuda.set_sync_debug_mode("error")`, so that a
+    synchronising call there raises and the phase fails; the mode is
+    first shown to raise on a blocking read. The mode does not see every
+    wait (an event's among them), so each guarded `tracking` call also
+    starts behind `NOWAIT_SLEEP_CYCLES` of spinning queued on the card:
+    it must return before its own residual's copy has landed
+    (`HostCopy.done()` False) on every guarded frame, which a wait for
+    anything queued after the spin would prevent. Prints the tracking
+    stage's host ms a frame."""
+    import torch
+    from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
+    from dqo_map_tpu_torch.slam.system import SLAMSystem
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.ones(1, device=device).item()
+        seen = False
+    except RuntimeError:
+        seen = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not seen:
+        raise RuntimeError("the sync debug mode let a blocking read pass")
+    _, cams = synthetic_sequence(NOWAIT_FRAMES, width=args.width,
+                                 height=args.height, with_detections=True)
+    shutil.rmtree(NOWAIT_DIR, ignore_errors=True)
+    cfg = slice_config(NOWAIT_DIR)
+    cfg.tracking.use_orb_backend = False
+    system = SLAMSystem(cfg, cameras=cams, device=device)
+    tr = system.tracker
+    if tr.pose_backend is not None or system.sync_method != "loose":
+        raise RuntimeError("the no-wait phase needs ICP alone in loose sync")
+    frame_at, early = [0], []
+
+    def guarded(fn, track: bool):
+        def call(*a, **kw):
+            if frame_at[0] < NOWAIT_FROM:
+                return fn(*a, **kw)
+            if track:
+                torch.cuda._sleep(NOWAIT_SLEEP_CYCLES)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if track:
+                early.append(not tr._pending_p2p.done())
+            return out
+        return call
+
+    tr.map_preprocess = guarded(tr.map_preprocess, False)
+    tr.tracking = guarded(tr.tracking, True)
+    reset_launches()
+    ms = []
+    for i, cam in enumerate(cams):
+        frame_at[0] = i
+        info = system.step(cam, i)
+        system.mapping.time += 1
+        ms.append(1e3 * info["tracker_s"])
+    torch.cuda.synchronize()
+    launches = launches_now()
+    ate = tr.eval_ate_series()
+    checked = ms[NOWAIT_FROM:]
+    print(f"no-wait phase (ICP alone, loose sync, {NOWAIT_FRAMES} frames at "
+          f"{args.width}x{args.height}): map_preprocess and tracking made no "
+          f"synchronising call on frames {NOWAIT_FROM}-{NOWAIT_FRAMES - 1} "
+          f"(sync debug mode 'error'); behind ~1 s of spinning on the card, "
+          f"tracking returned before its residual copy landed on "
+          f"{sum(early)} of {len(early)}; tracker "
+          f"{float(np.median(checked)):.2f} ms a frame (median; "
+          f"{', '.join(f'{x:.2f}' for x in checked)}), frames 0-"
+          f"{NOWAIT_FROM - 1}: {', '.join(f'{x:.2f}' for x in ms[:NOWAIT_FROM])} "
+          f"ms; ICP failures {tr.icp_fail_count}; ATE {ate:.4f} cm; launches "
+          f"{launches} [{card}]")
+    if len(early) != NOWAIT_FRAMES - NOWAIT_FROM or not all(early) or \
+            not ate < 1.0 or not launches.get("blend_fwd"):
+        raise RuntimeError(f"the no-wait phase is off: guarded frames "
+                           f"returning early {early}, ATE {ate} cm, "
+                           f"{launches}")
+    shutil.rmtree(NOWAIT_DIR, ignore_errors=True)
 
 
 def write_replica(cams, root: str) -> list:
@@ -2076,6 +2231,7 @@ def main(argv=None) -> int:
     # path D: path A's frames read back from Replica's layout, and the
     # run_slam CLI on office0's configuration over them
     run_path_d(cams, result, seconds, card)
+    nowait_phase(args, device, card)
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

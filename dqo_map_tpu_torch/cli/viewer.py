@@ -2,9 +2,10 @@
 a zero-dependency HTTP viewer in the slot of the reference's Open3D GUI.
 It serves a small HTML page (WASD/arrow + drag navigation) and renders
 the requested camera poses through the same rasterizer as the SLAM loop
-(the blend kernel K1 on the card), streaming PNG frames. Works against a
-saved run directory (PLY and trajectory) or a live `SLAMSystem`
-(`ViewerState.update` swaps the map it renders).
+(the blend kernel K1 on the card), streaming JPEG frames at quality 85,
+as the JAX package's viewer does. Works against a saved run directory
+(PLY and trajectory) or a live `SLAMSystem` (`ViewerState.update` swaps
+the map it renders).
 
     python -m dqo_map_tpu_torch.cli.viewer --config <cfg> --model <run_dir> \
         [--port 8090] [--width 640] [--height 480] [--device cuda]
@@ -174,8 +175,8 @@ def make_server(view: ViewerState, port: int,
                 host: str = "0.0.0.0") -> ThreadingHTTPServer:
     """The viewer's HTTP server on `host:port` (port 0: a free one, in
     `server_address`): `/` the page, `/render?yaw=&pitch=&x=&y=&z=&mode=`
-    a PNG view, `/stats` the live Gaussians and the frame as JSON."""
-    from ..utils.png import encode_png
+    a JPEG view at quality 85, `/stats` the live Gaussians and the frame as JSON."""
+    from ..utils.jpeg import encode_jpeg
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -195,7 +196,7 @@ def make_server(view: ViewerState, port: int,
                 img = view.render(g("yaw"), g("pitch"),
                                   [g("x"), g("y"), g("z")],
                                   q.get("mode", ["color"])[0])
-                self._send("image/png", encode_png(img))
+                self._send("image/jpeg", encode_jpeg(img, 85))
             elif self.path.startswith("/stats"):
                 with view.lock:
                     n = int((view.state.status != 0).sum())

@@ -1,15 +1,22 @@
-// Baseline and extended-sequential Huffman JPEG decoder for the port's
-// dataset readers (host code, no libjpeg). Its output is bit-equal to
-// libjpeg-turbo's with the decoder defaults that PIL's `Image.open` uses:
-// the integer ("islow") inverse DCT with its range limiting, fancy
-// upsampling of subsampled chroma, and the fixed-point YCbCr -> RGB tables.
+// Baseline, extended-sequential and progressive Huffman JPEG decoder for
+// the port's dataset readers (host code, no libjpeg). Its output is
+// bit-equal to libjpeg-turbo's with the decoder defaults that PIL's
+// `Image.open` uses: the integer ("islow") inverse DCT with its range
+// limiting, fancy upsampling of subsampled chroma, and the fixed-point
+// YCbCr -> RGB tables.
 //
-// Reads 8-bit sequential Huffman files (SOF0, SOF1) of 1 component (grey)
-// or 3 (YCbCr: JFIF, Adobe transform 1, or unmarked), any integral
-// sampling factors from 1 to 4, interleaved or not, restart intervals, any
-// Huffman and quantisation tables, any size. Anything else (progressive,
-// arithmetic coding, lossless, 12-bit, CMYK / YCCK, RGB, truncated or
-// corrupt data) fails with a message naming the cause.
+// Reads 8-bit Huffman files, sequential (SOF0, SOF1) or progressive
+// (SOF2: the DC first and refine scans, the AC first and refine scans
+// with end-of-band runs and successive approximation, as jdphuff.c
+// decodes them, into a coefficient buffer of the whole image), of 1
+// component (grey) or 3: YCbCr (JFIF, Adobe transform other than 0, or
+// unmarked) or RGB (Adobe transform 0, or unmarked with component ids
+// 'R', 'G', 'B'; no colour conversion). Any integral sampling factors
+// from 1 to 4, interleaved or not, restart intervals, any Huffman and
+// quantisation tables, any size. Anything else (arithmetic coding,
+// lossless, 12-bit, CMYK / YCCK, a progressive file whose scans leave
+// low coefficient bits unsent, for which libjpeg smooths the blocks,
+// truncated or corrupt data) fails with a message naming the cause.
 //
 // C interface: `jd_decode(data, size, dims, &out)` decodes a whole file
 // held in memory; on success it returns 0, sets dims = {H, W, C} and
@@ -42,7 +49,6 @@ std::string marker_name(int m) {
   std::snprintf(buf, sizeof buf, "0x%02X", m);
   std::string hex = std::string("marker ") + buf;
   switch (m) {
-    case 0xC2: return "progressive (SOF2, " + hex + ")";
     case 0xC3: return "lossless (SOF3, " + hex + ")";
     case 0xC5: case 0xC6: case 0xC7:
       return "hierarchical (SOF" + std::to_string(m - 0xC0) + ", " + hex + ")";
@@ -107,6 +113,8 @@ struct Component {
   int bw = 0, bh = 0;              // blocks a row / column, MCU-padded
   int dw = 0, dh = 0;              // downsampled width and height
   bool seen = false;               // coded by some scan
+  uint16_t qt[64];                 // its table, latched at its first scan
+  int coef_bits[64];               // progressive: the lowest bit sent, -1
   std::vector<int16_t> coef;       // bh * bw blocks of 64, natural order
 };
 
@@ -212,7 +220,7 @@ class Decoder {
     for (;;) {
       int m = next_marker();
       if (m == 0xD9) break;                                   // EOI
-      if (m == 0xC0 || m == 0xC1) { read_sof(m); continue; }
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) { read_sof(m); continue; }
       if ((m >= 0xC2 && m <= 0xCF && m != 0xC4 && m != 0xC8) || m == 0xDC)
         fail("unsupported " + marker_name(m));
       if (m == 0xC4) { read_dht(); continue; }
@@ -240,6 +248,7 @@ class Decoder {
   size_t n_, pos_ = 0;
   int H_ = 0, W_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_ = 0;
+  bool progressive_ = false;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
   uint16_t q_[4][64];
@@ -294,6 +303,7 @@ class Decoder {
 
   void read_sof(int m) {
     if (!comps_.empty()) fail("a second frame header (SOF)");
+    progressive_ = m == 0xC2;
     size_t end;
     segment(&end);
     int precision = byte();
@@ -332,6 +342,7 @@ class Decoder {
       c.dw = static_cast<int>((static_cast<long>(W_) * c.h + hmax_ - 1) / hmax_);
       c.dh = static_cast<int>((static_cast<long>(H_) * c.v + vmax_ - 1) / vmax_);
       c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
   }
 
@@ -395,24 +406,42 @@ class Decoder {
       sc.push_back(c);
     }
     int ss = byte(), se = byte(), a = byte();
-    if (ss != 0 || se != 63 || a != 0)
+    int ah = a >> 4, al = a & 15;
+    if (!progressive_ && (ss != 0 || se != 63 || a != 0))
       fail("spectral selection or successive approximation in a "
            "sequential scan");
+    if (progressive_ &&
+        (ss > se || se > 63 || (ss == 0 && se != 0) ||
+         (ss > 0 && ns != 1) || ah > 13 || al > 13 || (ah && ah != al + 1)))
+      fail("bad progressive scan parameters (Ss " + std::to_string(ss) +
+           ", Se " + std::to_string(se) + ", Ah " + std::to_string(ah) +
+           ", Al " + std::to_string(al) + ")");
     if (pos_ != end) fail("bad SOS length");
+    const bool dc_scan = ss == 0, first = ah == 0;
     int blocks_per_mcu = 0;
     for (auto *c : sc) {
-      if (!dc_[c->td].defined || !ac_[c->ta].defined)
+      if ((dc_scan && first && !dc_[c->td].defined) ||
+          (!dc_scan && !ac_[c->ta].defined) ||
+          (!progressive_ && !ac_[c->ta].defined))
         fail("a scan uses an undefined Huffman table");
-      if (!q_defined_[c->tq]) fail("a component's quantisation table is "
-                                   "undefined");
+      if (!c->seen) {
+        if (!q_defined_[c->tq]) fail("a component's quantisation table is "
+                                     "undefined");
+        std::memcpy(c->qt, q_[c->tq], sizeof c->qt);
+      }
       blocks_per_mcu += ns == 1 ? 1 : c->h * c->v;
       c->seen = true;
+      for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
     }
     if (blocks_per_mcu > 10) fail("more than 10 blocks in an MCU");
-    decode_scan(sc);
+    decode_scan(sc, ss, se, ah, al);
   }
 
-  void decode_scan(const std::vector<Component *> &sc) {
+  // one scan's blocks; a sequential scan codes each block whole, a
+  // progressive one the band [ss, se] of it at bit al (refining bit al of
+  // what earlier scans sent where ah > 0)
+  void decode_scan(const std::vector<Component *> &sc, int ss, int se,
+                   int ah, int al) {
     const bool single = sc.size() == 1;
     // a single-component scan codes the component's own blocks, one an
     // MCU; an interleaved one whole MCUs of h x v blocks per component
@@ -426,6 +455,7 @@ class Decoder {
     }
     long total = static_cast<long>(nx) * ny;
     int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
     BitReader br(d_, n_, pos_);
     int next_rst = 0;
     for (long mcu = 0; mcu < total; ++mcu) {
@@ -440,6 +470,7 @@ class Decoder {
         br = BitReader(d_, n_, p + 1);
         next_rst = (next_rst + 1) & 7;
         std::memset(pred, 0, sizeof pred);
+        eobrun = 0;
       }
       int mx = static_cast<int>(mcu % nx), my = static_cast<int>(mcu / nx);
       for (size_t k = 0; k < sc.size(); ++k) {
@@ -449,7 +480,16 @@ class Decoder {
           for (int bx = 0; bx < h; ++bx) {
             int row = my * v + by, col = mx * h + bx;
             int16_t *blk = &c.coef[(static_cast<size_t>(row) * c.bw + col) * 64];
-            decode_block(br, dc_[c.td], ac_[c.ta], &pred[k], blk);
+            if (!progressive_)
+              decode_block(br, dc_[c.td], ac_[c.ta], &pred[k], blk);
+            else if (ss == 0 && ah == 0)
+              dc_first(br, dc_[c.td], &pred[k], blk, al);
+            else if (ss == 0)
+              blk[0] = static_cast<int16_t>(blk[0] | (br.bit() << al));
+            else if (ah == 0)
+              ac_first(br, ac_[c.ta], blk, ss, se, al, &eobrun);
+            else
+              ac_refine(br, ac_[c.ta], blk, ss, se, al, &eobrun);
           }
       }
       if (br.overrun()) fail("truncated or corrupt data (the scan ends "
@@ -486,6 +526,84 @@ class Decoder {
       } else {
         break;
       }
+    }
+  }
+
+  // jdphuff.c's decode_mcu_DC_first: the DC difference, scaled by 2^al
+  void dc_first(BitReader &br, const Huffman &dc, int *pred, int16_t *blk,
+                int al) {
+    int s = br.decode(dc);
+    *pred += s ? extend(br.bits(s), s) : 0;
+    blk[0] = static_cast<int16_t>(static_cast<unsigned>(*pred) << al);
+  }
+
+  // jdphuff.c's decode_mcu_AC_first: the band's first bits, or one block
+  // of a pending end-of-band run
+  void ac_first(BitReader &br, const Huffman &ac, int16_t *blk, int ss,
+                int se, int al, int *eobrun) {
+    if (*eobrun > 0) {
+      --*eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(ac);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) fail("corrupt data (coefficient index past the band)");
+        blk[kNatural[k]] = static_cast<int16_t>(
+            static_cast<unsigned>(extend(br.bits(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        *eobrun = (1 << r) - 1 + (r ? br.bits(r) : 0);
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c's decode_mcu_AC_refine: a correction bit for each nonzero
+  // coefficient passed over, and a new +-2^al coefficient after each run
+  // of zero ones
+  void ac_refine(BitReader &br, const Huffman &ac, int16_t *blk, int ss,
+                 int se, int al, int *eobrun) {
+    const int p1 = 1 << al, m1 = -p1;
+    auto refine = [&](int16_t &c) {
+      if (br.bit() && (c & p1) == 0)
+        c = static_cast<int16_t>(c + (c >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (*eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = br.decode(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) fail("corrupt data (bad refinement coefficient size)");
+          s = br.bit() ? p1 : m1;
+        } else if (r != 15) {
+          *eobrun = (1 << r) + (r ? br.bits(r) : 0);
+          break;
+        }
+        do {
+          int16_t &c = blk[kNatural[k]];
+          if (c != 0)
+            refine(c);
+          else if (--r < 0)
+            break;
+          ++k;
+        } while (k <= se);
+        if (s) {
+          if (k > se) fail("corrupt data (coefficient index past the band)");
+          blk[kNatural[k]] = static_cast<int16_t>(s);
+        }
+      }
+    }
+    if (*eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t &c = blk[kNatural[k]];
+        if (c != 0) refine(c);
+      }
+      --*eobrun;
     }
   }
 
@@ -618,7 +736,7 @@ class Decoder {
   std::vector<uint8_t> samples(const Component &c) const {
     int stride = c.bw * 8;
     std::vector<uint8_t> s(static_cast<size_t>(stride) * c.bh * 8);
-    const uint16_t *qt = q_[c.tq];
+    const uint16_t *qt = c.qt;
     int rows = (c.dh + 7) / 8, cols = (c.dw + 7) / 8;
     for (int by = 0; by < rows; ++by)
       for (int bx = 0; bx < cols; ++bx)
@@ -691,21 +809,34 @@ class Decoder {
     const size_t npix = static_cast<size_t>(W_) * H_;
     dims[0] = H_;
     dims[1] = W_;
+    // jdcoefct.c's smoothing_ok: libjpeg smooths the blocks of a
+    // progressive image whose coefficients 1-9 lack low bits
+    for (const auto &c : comps_)
+      for (int k = 1; progressive_ && k <= 9; ++k)
+        if (c.coef_bits[k] != 0)
+          fail("a progressive file whose scans leave coefficient " +
+               std::to_string(k) + " unrefined (libjpeg smooths its "
+               "blocks)");
     if (comps_.size() == 1) {
       dims[2] = 1;
       return upsample(comps_[0], samples(comps_[0]));
     }
     // the colour space as jdapimin.c's default_decompress_parms guesses
-    // it: JFIF, Adobe transform 1 and unmarked files are YCbCr, but an
-    // unmarked one with component ids 'R', 'G', 'B'
-    if (!jfif_ && adobe_ && adobe_transform_ != 1)
-      fail("Adobe colour transform " + std::to_string(adobe_transform_) +
-           " (RGB or other); only YCbCr is read");
-    if (!jfif_ && !adobe_ && comps_[0].id == 82 && comps_[1].id == 71 &&
-        comps_[2].id == 66)
-      fail("RGB colour (component ids R, G, B); only YCbCr is read");
+    // it: JFIF files are YCbCr; Adobe ones RGB at transform 0, else YCbCr;
+    // unmarked ones RGB with component ids 'R', 'G', 'B', else YCbCr
+    const bool rgb_space =
+        !jfif_ && (adobe_ ? adobe_transform_ == 0
+                          : comps_[0].id == 82 && comps_[1].id == 71 &&
+                                comps_[2].id == 66);
     std::vector<uint8_t> p[3];
     for (int k = 0; k < 3; ++k) p[k] = upsample(comps_[k], samples(comps_[k]));
+    dims[2] = 3;
+    if (rgb_space) {                      // jdcolor.c's rgb_rgb_convert
+      std::vector<uint8_t> out(npix * 3);
+      for (size_t i = 0; i < npix; ++i)
+        for (int k = 0; k < 3; ++k) out[3 * i + k] = p[k][i];
+      return out;
+    }
     // jdcolor.c's ycc_rgb_convert tables, SCALEBITS 16
     constexpr int SB = 16;
     constexpr int64_t HALF = int64_t(1) << (SB - 1);
@@ -724,7 +855,6 @@ class Decoder {
     auto clamp = [](int v) {
       return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
     };
-    dims[2] = 3;
     std::vector<uint8_t> rgb(npix * 3);
     for (size_t i = 0; i < npix; ++i) {
       int y = p[0][i], cb = p[1][i], cr = p[2][i];

@@ -1,8 +1,8 @@
 """Render quality and geometry evaluation (counterpart of
 `dqo_map_tpu/eval/evaluate.py`): PSNR, SSIM, MS-SSIM, colour-L1, depth-L1
 and the valid-depth ratio of a render against its frame, with the
-comparison images written as PNG, and point-cloud accuracy against a
-ground-truth sampling (`eval_pcd`).
+comparison images written as JPEG at quality 75, as PIL writes them, and
+point-cloud accuracy against a ground-truth sampling (`eval_pcd`).
 
 LPIPS keeps the reference's contract: the `lpips` key is always present,
 None with an `lpips_note` when it was not computed. It is computed only
@@ -20,7 +20,7 @@ import torch
 
 from ..ops.knn import knn
 from ..utils.losses import l1_loss, ms_ssim, psnr, ssim
-from ..utils.png import write_png
+from ..utils.jpeg import write_jpeg
 
 
 def _lpips(img1: torch.Tensor, img2: torch.Tensor) -> Optional[float]:
@@ -61,8 +61,9 @@ def eval_picture(render_output: dict, gt_color: np.ndarray,
                  with_lpips: bool = False) -> dict:
     """The metrics of a render (`render`, `depth`, `depth_index_map`)
     against its frame, computed on the render's device; depth-L1 in cm.
-    With `save_path`, writes `color_compare.png` (render, frame, |error|)
-    and `depth_compare.png` (render depth, frame depth) there."""
+    With `save_path`, writes `color_compare.jpg` (render, frame, |error|;
+    4:2:0) and `depth_compare.jpg` (render depth, frame depth; grey)
+    there, at quality 75."""
     image = render_output["render"].detach()
     depth = render_output["depth"].detach()
     index = render_output["depth_index_map"]
@@ -89,24 +90,34 @@ def eval_picture(render_output: dict, gt_color: np.ndarray,
 
     if save_path:
         img, gt = image.cpu().numpy(), gt_img.cpu().numpy()
-        write_png(os.path.join(save_path, "color_compare.png"),
-                  _to_u8(np.concatenate([img, gt, np.abs(img - gt)], axis=1)))
+        write_jpeg(os.path.join(save_path, "color_compare.jpg"),
+                   _to_u8(np.concatenate([img, gt, np.abs(img - gt)], axis=1)),
+                   75)
         gtd = gtd.cpu().numpy()
         dmax = max(float(gtd.max()), 1e-6)
-        write_png(os.path.join(save_path, "depth_compare.png"),
-                  _to_u8(np.concatenate([depth.cpu().numpy(), gtd], axis=1)
-                         / dmax))
+        write_jpeg(os.path.join(save_path, "depth_compare.jpg"),
+                   _to_u8(np.concatenate([depth.cpu().numpy(), gtd], axis=1)
+                          / dmax), 75)
     return metrics
 
 
 def eval_frame(mapping, frame, save_path: Optional[str] = None,
                min_depth: float = 0.3, max_depth: float = 5.0,
-               save_picture: bool = False) -> dict:
+               save_picture: bool = False, run_pcd: bool = False,
+               gt_mesh_points: Optional[np.ndarray] = None) -> dict:
     """The model render of `mapping` at `frame` (a model render of the
-    mapping's, on its device) against the frame."""
+    mapping's, on its device) against the frame. With `run_pcd` and
+    `gt_mesh_points`, also `eval_pcd` of the map's alive Gaussian centres
+    against those points."""
     out = mapping.get_render_output(frame.render_inputs(mapping.device))
-    return eval_picture(out, frame.image, frame.depth, min_depth, max_depth,
-                        save_path if save_picture else None)
+    metrics = eval_picture(out, frame.image, frame.depth, min_depth,
+                           max_depth, save_path if save_picture else None)
+    if run_pcd and gt_mesh_points is not None:
+        st = mapping.state
+        alive = (st.status != 0).cpu().numpy()
+        metrics.update(eval_pcd(st.xyz.detach().cpu().numpy()[alive],
+                                gt_mesh_points, device=mapping.device))
+    return metrics
 
 
 def eval_pcd(points: np.ndarray, gt_points: np.ndarray,

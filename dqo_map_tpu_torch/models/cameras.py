@@ -7,7 +7,8 @@ column-vector math: `w2c` and `K` are used as they are.
 A camera may also hold its pose as a tensor on the device
 (`set_pose_device`), which the tracker's pose chain leaves there: the
 render inputs are then computed on the device, without a readback, and
-host-side consumers call `sync_pose()` first.
+host-side consumers call `sync_pose()` first, which reads the host copy
+the tracker queued with the pose.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ class Camera:
     znear: float = 0.01
     zfar: float = 100.0
     c2w_dev: Optional[torch.Tensor] = None    # device-side pose
+    c2w_host: Optional[object] = None         # its queued host copy
 
     # --- pose ---------------------------------------------------------------
     @property
@@ -114,18 +116,40 @@ class Camera:
 
     def update_pose(self, pose_c2w: np.ndarray) -> None:
         self.c2w = np.asarray(pose_c2w, dtype=np.float64)
-        self.c2w_dev = None
+        self.c2w_dev = self.c2w_host = None
 
-    def set_pose_device(self, c2w_dev: torch.Tensor) -> None:
+    def set_pose_device(self, c2w_dev: torch.Tensor, host) -> None:
         """Adopt a device-side pose: render inputs are then computed on the
-        device; host-side consumers call `sync_pose()` first."""
-        self.c2w_dev = c2w_dev
+        device; host-side consumers call `sync_pose()` first. `host` is its
+        queued host copy, whose `numpy()` waits for that copy alone
+        (`slam/tracker.py::HostCopy`)."""
+        self.c2w_dev, self.c2w_host = c2w_dev, host
 
     def sync_pose(self) -> None:
-        """Copy the device pose into the numpy `c2w` (waits for it)."""
+        """Copy the device pose's host copy into the numpy `c2w`."""
         if self.c2w_dev is not None:
-            self.c2w = self.c2w_dev.detach().cpu().numpy().astype(np.float64)
-            self.c2w_dev = None
+            self.c2w = np.asarray(self.c2w_host.numpy(), np.float64)
+            self.c2w_dev = self.c2w_host = None
+
+    def resized(self, scale: float) -> "Camera":
+        """A copy at `scale` of the size, the images sampled nearest; the
+        camera itself at scale 1."""
+        if scale == 1.0:
+            return self
+        H2, W2 = int(self.height * scale), int(self.width * scale)
+        ys = (np.arange(H2) / scale).astype(np.int64).clip(0, self.height - 1)
+        xs = (np.arange(W2) / scale).astype(np.int64).clip(0, self.width - 1)
+
+        def rs(img):
+            return None if img is None else img[ys][:, xs]
+
+        return Camera(
+            uid=self.uid, c2w=self.c2w, fx=self.fx * scale, fy=self.fy * scale,
+            cx=self.cx * scale, cy=self.cy * scale, width=W2, height=H2,
+            image=rs(self.image), depth=rs(self.depth), pose_gt=self.pose_gt,
+            timestamp=self.timestamp, depth_scale=self.depth_scale,
+            semantics=rs(self.semantics), instance=rs(self.instance),
+            object_img=rs(self.object_img), detections=self.detections)
 
     # --- packing for the rasterizer -----------------------------------------
     def render_inputs(self, device="cuda") -> dict:

@@ -71,6 +71,20 @@ def knn2(queries: torch.Tensor, candidates: torch.Tensor,
     return result[0], result[1]
 
 
+def update_geometry_scales(new_xyz: torch.Tensor, new_valid: torch.Tensor,
+                           cand_xyz: torch.Tensor, cand_radius: torch.Tensor,
+                           cand_valid: torch.Tensor, scale_factor: float,
+                           xyz_factor: tuple, min_radius: float,
+                           max_radius: float):
+    """Scale init for freshly added gaussians with its own search: the
+    candidates hold the new points first (slot m is query m), then the
+    map; `scales_from_knn` over the 4 nearest valid candidates. Returns
+    (log-scales (M, 3), keep mask (M,))."""
+    d2, idx = knn(new_xyz, cand_xyz, cand_valid, k=4)
+    return scales_from_knn(d2, idx, new_valid, cand_radius, None,
+                           scale_factor, xyz_factor, min_radius, max_radius)
+
+
 def scales_from_knn(d2: torch.Tensor, idx: torch.Tensor,
                     new_valid: torch.Tensor, cand_radius: torch.Tensor,
                     cand_excluded, scale_factor: float, xyz_factor: tuple,

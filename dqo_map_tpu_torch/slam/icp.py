@@ -3,7 +3,8 @@
 
 Projective data association by nearest-pixel warping, one Gauss-Newton
 step per iteration with Levenberg-Marquardt damping, and the 6x6 solve on
-the device (an unrolled Cholesky), so the pose never leaves it.
+the device (an unrolled Cholesky), so the pose never leaves it. On a card
+the pyramid runs as one CUDA graph (`IcpGraph`).
 """
 
 from __future__ import annotations
@@ -149,11 +150,10 @@ def icp_pyramid(vertex_pyr0, normal_pyr0, vertex_pyr1, normal_pyr1,
     associations."""
     pose = torch.eye(4, dtype=torch.float32, device=K.device)
     for level, (ds, iters) in enumerate(zip(cfg.downscales, cfg.iters)):
-        Kd = K * ds
-        Kd[2, 2] = 1.0
+        # the residuals read only fx, fy, cx and cy of the scaled matrix
         pose, _ = icp_level(
             pose, vertex_pyr1[level], vertex_pyr0[level],
-            normal_pyr1[level], normal_pyr0[level], Kd, iters,
+            normal_pyr1[level], normal_pyr0[level], K * ds, iters,
             cfg.distance_threshold, cfg.normal_threshold_cos, cfg.damping)
     v1, n1 = vertex_pyr1[-1], normal_pyr1[-1]
     v0, n0 = vertex_pyr0[-1], normal_pyr0[-1]
@@ -163,3 +163,50 @@ def icp_pyramid(vertex_pyr0, normal_pyr0, vertex_pyr1, normal_pyr1,
     n_in = torch.sum(inlier)
     p2p = torch.sum(res * res) / torch.clamp(n_in, min=1)
     return pose, p2p, n_in / res.shape[0]
+
+
+class IcpGraph:
+    """`icp_pyramid` on a card as one CUDA graph. A pyramid is thousands
+    of small kernels; launched one by one they fill the card's launch queue
+    whenever the card is behind, and the host then waits for the card to
+    drain it. The graph is captured over static input buffers at the
+    first call, which waits for the card once, and replayed after: the
+    inputs are copied in, one launch runs the pyramid, and the outputs
+    are copied out. The kernels are those of `icp_pyramid`."""
+
+    def __init__(self, vertex_pyr0, normal_pyr0, vertex_pyr1, normal_pyr1,
+                 K: torch.Tensor, cfg: IcpConfig):
+        self._levels = len(vertex_pyr0)
+        self._inputs = [t.clone() for t in (*vertex_pyr0, *normal_pyr0,
+                                             *vertex_pyr1, *normal_pyr1, K)]
+        stream = torch.cuda.current_stream(K.device)
+        with torch.cuda.device(K.device):
+            # a run outside the capture first, as capturing requires
+            side = torch.cuda.Stream()
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                self._run(cfg)
+            stream.wait_stream(side)
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph):
+                self._outputs = self._run(cfg)
+
+    def _run(self, cfg: IcpConfig):
+        n, x = self._levels, self._inputs
+        return icp_pyramid(x[:n], x[n:2 * n], x[2 * n:3 * n],
+                           x[3 * n:4 * n], x[4 * n], cfg)
+
+    def fits(self, vertex_pyr0, K: torch.Tensor) -> bool:
+        """Whether pyramids of these shapes, on this card, replay it."""
+        return (K.device == self._inputs[-1].device
+                and [t.shape for t in vertex_pyr0]
+                == [t.shape for t in self._inputs[:self._levels]])
+
+    def __call__(self, vertex_pyr0, normal_pyr0, vertex_pyr1, normal_pyr1,
+                 K: torch.Tensor):
+        """(pose10, p2p, valid ratio) as `icp_pyramid` returns them."""
+        for dst, src in zip(self._inputs, (*vertex_pyr0, *normal_pyr0,
+                                           *vertex_pyr1, *normal_pyr1, K)):
+            dst.copy_(src)
+        self._graph.replay()
+        return tuple(o.clone() for o in self._outputs)

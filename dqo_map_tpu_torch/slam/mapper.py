@@ -707,6 +707,16 @@ def prune_untouched(state: MapState, n_touched: torch.Tensor, w2c, K,
     return gm.delete_points(state, kill)
 
 
+def error_remove_step(state: MapState, frame_map: dict, cam: dict,
+                      settings: RenderSettings, add_color_thres: float,
+                      add_depth_thres: float, add_normal_thres: float,
+                      time: int) -> MapState:
+    """`error_remove_from` on a fresh whole-map render at `cam`."""
+    out = render_state(state, cam, settings, "global")
+    return error_remove_from(state, out, frame_map, add_color_thres,
+                             add_depth_thres, add_normal_thres, time)
+
+
 def error_remove_from(state: MapState, out: dict, frame_map: dict,
                       add_color_thres: float, add_depth_thres: float,
                       add_normal_thres: float, time: int) -> MapState:
@@ -1179,18 +1189,20 @@ class Mapping:
         self._count_scan("final" if is_final else "global", reports)
 
     def mapping(self, frame: Camera, frame_map: dict, frame_id: int,
-                object_layer=None) -> bool:
-        """Per-frame mapping step up to, not including, the promote /
-        error-remove / delete tail: the caller runs `finalize_frame` with
-        the end-of-frame model render. On the optimize cadence it runs the
-        local scan, or on a keyframe over a map with stable Gaussians the
-        keyframe scan. With the object layer, the frame's detections are
-        associated first and the new Gaussians take the object index of
-        their pixel. In MODE=1 the matched objects are refined after the
-        scan on a keyframe (and frame 0); in MODE=0 every frame with
-        detections ends with the render refinement of the objects and the
-        deletion of the stable Gaussians whose radius exceeds ten times the
-        stable mean."""
+                object_layer=None, defer_finalize: bool = False) -> bool:
+        """Per-frame mapping step. With `defer_finalize` it stops before
+        the promote / error-remove / delete tail, and the caller runs
+        `finalize_frame` with the end-of-frame model render (as
+        `SLAMSystem.step` does); without it the tail runs here, on a fresh
+        render at the last processed frame (`error_remove_step`). On the
+        optimize cadence it runs the local scan, or on a keyframe over a
+        map with stable Gaussians the keyframe scan. With the object layer,
+        the frame's detections are associated first and the new Gaussians
+        take the object index of their pixel. In MODE=1 the matched objects
+        are refined after the scan on a keyframe (and frame 0); in MODE=0
+        every frame with detections ends with the render refinement of the
+        objects and the deletion of the stable Gaussians whose radius
+        exceeds ten times the stable mean."""
         if object_layer is not None:
             if frame.detections is not None:
                 object_layer.process_frame(frame, frame_id)
@@ -1225,6 +1237,20 @@ class Mapping:
             self.state = gaussians_delete(self.state, self.time,
                                           self.args.unstable_time_window,
                                           unstable=False)
+        if not defer_finalize:
+            a = self.args
+            t0 = _now()
+            self.state = gaussians_fix(self.state, a.stable_confidence_thres)
+            if self.processed_frames and self.counts()[1] > 0:
+                last_cam, last_fm = self.processed_frames[-1]
+                self.state = error_remove_step(
+                    self.state, last_fm, last_cam, self.settings,
+                    a.add_color_thres, a.add_depth_thres, a.add_normal_thres,
+                    self.time)
+            self.state = gaussians_delete(self.state, self.time,
+                                          a.unstable_time_window,
+                                          unstable=True)
+            _pr("fix+error_remove+delete", t0, self.state.xyz)
         return is_keyframe
 
     def finalize_frame(self, out: dict, frame_map: dict):

@@ -49,12 +49,14 @@ SYNC_METHODS = ("strict", "loose", "free")
 
 
 class SLAMSystem:
-    def __init__(self, cfg: Config, cameras=None, device="cuda"):
-        """Over `cameras`, or by default the frames of `cfg.dataset`."""
+    def __init__(self, cfg: Config, dataset: Optional[Dataset] = None,
+                 cameras=None, device="cuda"):
+        """Over `cameras`, else the frames of `dataset`, by default the
+        `Dataset` of `cfg.dataset`."""
         self.cfg = cfg
         self.device = torch.device(device)
         if cameras is None:
-            cameras = Dataset(cfg.dataset).cameras
+            cameras = (dataset or Dataset(cfg.dataset)).cameras
         self.cameras = cameras
         self.width, self.height = cameras[0].width, cameras[0].height
         self.recorder = Recorder(self.device)
@@ -115,7 +117,8 @@ class SLAMSystem:
         t1 = time.perf_counter()
         self.recorder.update_mean("tracking", t1 - t0)
 
-        self.mapping.mapping(frame, frame_map, frame_id, self.object_layer)
+        self.mapping.mapping(frame, frame_map, frame_id, self.object_layer,
+                             defer_finalize=True)
         # the end-of-frame model render feeds the finalize error counts and
         # the tracker's model-depth reference. Where no optimize scan ran,
         # the pre-densify render of `gaussians_add` (same pose, the map less
@@ -178,14 +181,19 @@ class SLAMSystem:
     def save_objects(self, frame: Camera):
         """`save_obj/objects.txt`, the colour passes at `frame`, and
         `save_obj/iou.txt`: the mean projected-box IoU of each object over
-        its observations (`record_iou`)."""
+        its observations (`record_iou`). As in the JAX package, a failure
+        of the IoU log is printed and the run carries on."""
         obj_dir = os.path.join(self.save_path, "save_obj")
         self.object_layer.save(obj_dir)
         self.save_object_passes(frame)
-        ious = self.object_layer.record_iou(np.asarray(frame.K, np.float64))
-        with open(os.path.join(obj_dir, "iou.txt"), "w") as f:
-            for oid, iou in sorted(ious.items()):
-                f.write(f"{oid} {iou:.6f}\n")
+        try:
+            ious = self.object_layer.record_iou(np.asarray(frame.K,
+                                                           np.float64))
+            with open(os.path.join(obj_dir, "iou.txt"), "w") as f:
+                for oid, iou in sorted(ious.items()):
+                    f.write(f"{oid} {iou:.6f}\n")
+        except Exception as e:
+            print(f"[slam] record_iou failed: {e}")
 
     def run(self, eval_every: int = 0, verbose: bool = True,
             max_frames: int = -1, start_frame: int = 0,
@@ -195,7 +203,9 @@ class SLAMSystem:
         `checkpoint_every`-th; then the final whole-history pass, the final
         evaluation at the last frame, the trajectory (`save_traj/`), the map
         (`save_model/`) and `performance.json`. Returns the final metrics
-        with `ate_cm` and the performance numbers."""
+        with `ate_cm` and the performance numbers. A failed trajectory
+        write is printed and leaves `ate_cm` None, as in the JAX
+        package."""
         n = len(self.cameras) if max_frames < 0 else min(max_frames,
                                                          len(self.cameras))
         for frame_id in range(start_frame, n):
@@ -222,7 +232,11 @@ class SLAMSystem:
         self.mapping.global_optimization(is_end=True)
         final = self._eval(self.cameras[n - 1])
         self.metrics_history.append({**final, "frame": "final"})
-        ate = self.tracker.save_traj(self.save_path)
+        ate = None
+        try:
+            ate = self.tracker.save_traj(self.save_path)
+        except Exception as e:
+            print(f"[slam] traj save failed: {e}")
         self.mapping.save_model()
         if self.cfg.map.pcd_densify:
             pts, nrms = densify_point_cloud(self.mapping.state, sigma=1,

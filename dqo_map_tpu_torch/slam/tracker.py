@@ -6,11 +6,17 @@ confidence masks and the ICP pyramids. With `async_pose` (set by
 SLAMSystem) and no feature backend the pose chain stays on the device: the
 ICP result is composed there, the frame adopts the device pose, and the
 failure check reads the PREVIOUS frame's residual, one frame late, so the
-host waits on nothing. With the feature backend (`use_orb_backend`,
-`pose_backend.py`) the pose is fused on the host: the backend's detection
-runs while the device still computes the ICP pose, then the pose and
-residual are read back once and fused, with the feature pose standing in
-where ICP failed.
+host waits on nothing: on a card the frame's uploads go through pinned
+memory without a wait, and the residual and the pose are copied into
+pinned host memory as they are queued (`HostCopy`), so the next frame's
+check and every later host reader of the pose wait only for that copy,
+never for the work queued after it; and the ICP pyramid is one CUDA
+graph launch (`icp.IcpGraph`), whose thousands of kernels would
+otherwise fill the card's launch queue and hold the host. With the feature backend
+(`use_orb_backend`, `pose_backend.py`) the pose is fused on the host: the
+backend's detection runs while the device still computes the ICP pose,
+then the pose and residual are read back once and fused, with the
+feature pose standing in where ICP failed.
 A failed frame's diagnostics are kept on the device and written at the end
 of the run (`flush_icp_failures`, called by `save_traj`), which also writes
 the trajectory files and the ATE.
@@ -30,7 +36,7 @@ import torch.nn.functional as F
 from ..models.cameras import Camera
 from ..utils import image as im
 from ..utils.math3d import eval_ate
-from .icp import IcpConfig, icp_pyramid
+from .icp import IcpConfig, IcpGraph, icp_pyramid
 from .mapper import _now, _pr
 from .pose_backend import PoseBackend
 
@@ -113,6 +119,46 @@ def fuse_model_depth(render_depth, frame_depth, render_normal, frame_normal,
     return torch.where(frame_depth > 0, fused, rd)
 
 
+class HostCopy:
+    """The host copy of a tensor. On a card: a copy into pinned host
+    memory, queued on the tensor's current stream with an event recorded
+    after it, so that `numpy()` waits for that event alone and not for the
+    work queued later. The first read keeps the values as a numpy array
+    and releases the pinned buffer and the event. Where the pinned buffer
+    or the event cannot be made, it raises. On the CPU it keeps the
+    values, with nothing to overlap."""
+
+    def __init__(self, x: torch.Tensor):
+        x = x.detach()
+        self._event = None
+        if x.is_cuda:
+            self._host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self._host.copy_(x, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(x.device))
+        else:
+            self._host = x.numpy()
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            self._host, self._event = self._host.numpy().copy(), None
+        return self._host
+
+    def done(self) -> bool:
+        """Whether the copy has landed, without waiting for it."""
+        return self._event is None or self._event.query()
+
+
+def _upload(a, dev: torch.device) -> torch.Tensor:
+    """A host array as a float32 tensor on `dev`; to a card through pinned
+    memory without waiting for the stream."""
+    t = torch.as_tensor(np.asarray(a, np.float32))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 class Tracker:
     def __init__(self, args, width: int, height: int, device="cuda"):
         self.device = torch.device(device)
@@ -139,16 +185,18 @@ class Tracker:
         self.height = height
         self.K = None
         self.pose_gt: list = []
-        self.pose_es: list = []        # numpy (4,4) or device tensors
+        self.pose_es: list = []        # numpy (4,4), the last maybe a tensor
+        self._pose_copy = None         # HostCopy of a tensor pose_es[-1]
         self.timestamps: list = []
         self.icp_fail_count = 0
         self.save_path: Optional[str] = None   # set by SLAMSystem for dumps
         self._fail_dumps = 0
         self._fail_pending: list = []
         self.async_pose = False        # device-side pose chain (SLAMSystem)
-        self._pending_p2p = None
+        self._pending_p2p = None       # HostCopy of [p2p, valid_ratio]
         self._last_pyr = None          # (vertex_pyr, normal_pyr) of frame t0
         self._curr_pyr = None
+        self._icp_graph = None         # IcpGraph, on a card
         # the feature pose backend; its library is built here at first use
         self.pose_backend = (PoseBackend(args)
                              if getattr(args, "use_orb_backend", False)
@@ -157,11 +205,10 @@ class Tracker:
     # ------------------------------------------------------------------
     def map_preprocess(self, frame: Camera, frame_id: int) -> dict:
         dev = self.device
-        self.K = torch.as_tensor(frame.K, device=dev)
+        self.K = _upload(frame.K, dev)
         fm = preprocess_frame(
-            torch.as_tensor(frame.depth, dtype=torch.float32, device=dev),
-            torch.as_tensor(frame.image, dtype=torch.float32, device=dev),
-            self.K, levels=self.levels, min_depth=self.min_depth,
+            _upload(frame.depth, dev), _upload(frame.image, dev), self.K,
+            levels=self.levels, min_depth=self.min_depth,
             max_depth=self.max_depth,
             invalid_confidence_thresh=self.invalid_confidence_thresh,
             depth_filter=self.depth_filter,
@@ -171,8 +218,7 @@ class Tracker:
         # the semantic and instance images, which the scans supervise with
         for key, img in (("semantics", frame.semantics),
                          ("instance_img", frame.instance)):
-            fm[key] = (None if img is None else
-                       torch.as_tensor(img, dtype=torch.float32, device=dev))
+            fm[key] = None if img is None else _upload(img, dev)
         return fm
 
     def tracking(self, frame: Camera, frame_map: dict) -> bool:
@@ -185,29 +231,31 @@ class Tracker:
             pose_t1_w = self.pose_gt[-1]
         elif self._last_pyr is None:
             # first frame (or first after a resume): hold the last pose
-            pose_t1_w = (self._pose_np(self.pose_es[-1]) if self.pose_es
-                         else np.eye(4))
+            pose_t1_w = (self._pose_np(len(self.pose_es) - 1)
+                         if self.pose_es else np.eye(4))
             if self.pose_backend is not None:
                 # the feature tracker's reference frame
                 self.pose_backend.ingest(frame)
                 self.pose_backend.poses.append(pose_t1_w)
         else:
-            vp0, np0 = self._last_pyr
-            pose10, p2p, valid_ratio = icp_pyramid(
-                vp0, np0, *self._curr_pyr, self.K, self.icp_cfg)
+            pose10, p2p, valid_ratio = self._icp(*self._last_pyr,
+                                                 *self._curr_pyr)
             if self.async_pose and self.pose_backend is None:
-                # deferred failure check on the previous frame's residual
+                # deferred failure check on the previous frame's residual,
+                # read from its host copy before the next one is queued
                 if self._pending_p2p is not None:
-                    p_prev, vr_prev = self._pending_p2p.tolist()
+                    p_prev, vr_prev = self._pending_p2p.numpy().tolist()
                     if (p_prev > self.icp_cfg.fail_threshold
                             or vr_prev < self.icp_cfg.min_valid_ratio):
                         self.icp_fail_count += 1
                         self._dump_icp_failure(frame_map, p_prev, None)
-                self._pending_p2p = torch.stack([p2p, valid_ratio.float()])
+                self._pending_p2p = HostCopy(torch.stack(
+                    [p2p, valid_ratio.float()]))
                 pose_dev = self._pose_dev() @ pose10
+                pose_copy = HostCopy(pose_dev)
                 self._last_pyr = self._curr_pyr
-                self.pose_es.append(pose_dev)
-                frame.set_pose_device(pose_dev)
+                self._append_pose(pose_dev, pose_copy)
+                frame.set_pose_device(pose_dev, pose_copy)
                 frame_map["vertex_map_w"] = im.transform_map(
                     frame_map["vertex_map_c"], pose_dev)
                 frame_map["normal_map_w"] = im.rotate_map(
@@ -237,20 +285,42 @@ class Tracker:
                 pose_t1_w = self.pose_backend.track(frame, pose10, success)
                 _pr("tracker/feature_backend", t0)
             else:
-                pose_t1_w = self._pose_np(self.pose_es[-1]) @ pose10
+                pose_t1_w = self._pose_np(len(self.pose_es) - 1) @ pose10
 
         self._last_pyr = self._curr_pyr
-        self.pose_es.append(np.asarray(pose_t1_w, np.float64))
+        self._append_pose(np.asarray(pose_t1_w, np.float64))
         frame.update_pose(pose_t1_w)
         c2w = torch.as_tensor(frame.c2w, dtype=torch.float32, device=self.device)
         frame_map["vertex_map_w"] = im.transform_map(frame_map["vertex_map_c"], c2w)
         frame_map["normal_map_w"] = im.rotate_map(frame_map["normal_map_c"], c2w)
         return success
 
-    @staticmethod
-    def _pose_np(p) -> np.ndarray:
+    def _icp(self, vp0, np0, vp1, np1):
+        """`icp_pyramid` of the two frames; on a card through its
+        `IcpGraph`, captured at the first call (and again where the
+        shapes change)."""
+        if not self.K.is_cuda:
+            return icp_pyramid(vp0, np0, vp1, np1, self.K, self.icp_cfg)
+        if self._icp_graph is None or not self._icp_graph.fits(vp0, self.K):
+            self._icp_graph = IcpGraph(vp0, np0, vp1, np1, self.K,
+                                       self.icp_cfg)
+        return self._icp_graph(vp0, np0, vp1, np1, self.K)
+
+    def _append_pose(self, pose, copy: Optional[HostCopy] = None) -> None:
+        """Append a pose: numpy, or a device tensor with its `HostCopy`.
+        The pose before it, where it was a device tensor, becomes its host
+        copy's array, so that only the last pose holds a copy in flight."""
+        if self._pose_copy is not None:
+            self.pose_es[-1] = np.asarray(self._pose_copy.numpy(), np.float64)
+        self._pose_copy = copy
+        self.pose_es.append(pose)
+
+    def _pose_np(self, i: int) -> np.ndarray:
+        """`pose_es[i]` as float64 numpy. Only the last pose can be a
+        device tensor; it is read from the host copy queued with it."""
+        p = self.pose_es[i]
         if isinstance(p, torch.Tensor):
-            return p.cpu().numpy().astype(np.float64)
+            p = self._pose_copy.numpy()
         return np.asarray(p, np.float64)
 
     def _pose_dev(self) -> torch.Tensor:
@@ -324,7 +394,7 @@ class Tracker:
 
     # ------------------------------------------------------------------
     def poses_np(self) -> list:
-        return [self._pose_np(p) for p in self.pose_es]
+        return [self._pose_np(i) for i in range(len(self.pose_es))]
 
     def eval_ate_series(self) -> float:
         es = np.stack([p[:3, 3] for p in self.poses_np()])

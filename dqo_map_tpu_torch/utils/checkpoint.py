@@ -113,6 +113,7 @@ def load_checkpoint(path: str, system) -> int:
 
     tr, t = host["tracker"], system.tracker
     t.pose_es = [np.asarray(p) for p in tr["pose_es"]]
+    t._pose_copy = None
     t.pose_gt = [np.asarray(p) for p in tr["pose_gt"]]
     t.timestamps = list(tr["timestamps"])
     t.icp_fail_count = tr["icp_fail_count"]

@@ -116,11 +116,13 @@ def build_depth_pyramid(depth: torch.Tensor, levels: int) -> list:
 
 
 def build_vertex_pyramid(depth: torch.Tensor, K: torch.Tensor, levels: int) -> list:
+    """Vertex maps of the depth pyramid, each with the intrinsics scaled to
+    its level (`compute_vertex_map` reads only fx, fy, cx and cy, so the
+    scaled matrix's last row is left as it falls: writing a constant into
+    a card's tensor would wait for the card)."""
     out = []
     for i, d in enumerate(build_depth_pyramid(depth, levels)):
-        Kd = K * (1.0 / (1 << (levels - 1 - i)))
-        Kd[2, 2] = 1.0
-        out.append(compute_vertex_map(d, Kd))
+        out.append(compute_vertex_map(d, K * (1.0 / (1 << (levels - 1 - i)))))
     return out
 
 

@@ -1,15 +1,17 @@
 """JPEG without an imaging package: `read_jpeg`, the ctypes binding of the
 port's own decoder (`csrc/jpeg_decode.cc`), which gives the arrays that
 PIL's `np.asarray(Image.open(path))` gives, bit for bit; and
-`write_jpeg`, a small baseline encoder in numpy that makes test and smoke
-data where PIL is absent (nothing on the main path calls it).
+`encode_jpeg` / `write_jpeg`, a numpy encoder that writes the file PIL's
+`Image.save(f, "JPEG", quality=q)` writes, byte for byte (the evaluation
+images at quality 75, the viewer's frames at 85, smoke data).
 
 The decoder is built from `csrc/jpeg_decode.cc` at first use with `g++
 -O3 -fPIC -std=c++17 -shared` into `dqo_map_tpu_torch/_build/`, under a
 name keyed by the source's and the flags' hash; a failed build raises.
-It reads 8-bit sequential Huffman JPEG (SOF0, SOF1), grey or YCbCr, any
-integral sampling factors, restart intervals; any other file raises
-`ValueError` naming the file and the cause.
+It reads 8-bit Huffman JPEG, sequential (SOF0, SOF1) or progressive
+(SOF2), grey, YCbCr or RGB, any integral sampling factors, restart
+intervals; any other file raises `ValueError` naming the file and the
+cause.
 """
 
 from __future__ import annotations
@@ -135,29 +137,117 @@ def _codes(spec):
     return code_of, len_of
 
 
-def _dct_matrix() -> np.ndarray:
-    """The orthonormal 8-point DCT-II: `C @ x` transforms the columns."""
-    u = np.arange(8)[:, None]
-    x = np.arange(8)[None, :]
-    c = np.cos((2 * x + 1) * u * np.pi / 16) * np.sqrt(2 / 8)
-    c[0] /= np.sqrt(2)
-    return c
+def _fdct_islow(x: np.ndarray) -> np.ndarray:
+    """jfdctint.c's `jpeg_fdct_islow` on blocks (..., 8, 8) of centred
+    samples: the rows, then the columns, CONST_BITS 13 and PASS1_BITS 2;
+    the output is scaled up by 8, as libjpeg's quantiser expects."""
+    CB, P1 = 13, 2
+
+    def descale(v, n):
+        return (v + (1 << (n - 1))) >> n
+
+    def one_pass(d, even_shift, odd_n):
+        d0, d1, d2, d3, d4, d5, d6, d7 = (d[..., i] for i in range(8))
+        tmp0, tmp7 = d0 + d7, d0 - d7
+        tmp1, tmp6 = d1 + d6, d1 - d6
+        tmp2, tmp5 = d2 + d5, d2 - d5
+        tmp3, tmp4 = d3 + d4, d3 - d4
+        tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+        tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+        out = [None] * 8
+        out[0], out[4] = even_shift(tmp10 + tmp11), even_shift(tmp10 - tmp11)
+        z1 = (tmp12 + tmp13) * 4433
+        out[2] = descale(z1 + tmp13 * 6270, odd_n)
+        out[6] = descale(z1 + tmp12 * -15137, odd_n)
+        z1, z2 = tmp4 + tmp7, tmp5 + tmp6
+        z3, z4 = tmp4 + tmp6, tmp5 + tmp7
+        z5 = (z3 + z4) * 9633
+        tmp4, tmp5 = tmp4 * 2446, tmp5 * 16819
+        tmp6, tmp7 = tmp6 * 25172, tmp7 * 12299
+        z1, z2 = z1 * -7373, z2 * -20995
+        z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+        out[7] = descale(tmp4 + z1 + z3, odd_n)
+        out[5] = descale(tmp5 + z2 + z4, odd_n)
+        out[3] = descale(tmp6 + z2 + z3, odd_n)
+        out[1] = descale(tmp7 + z1 + z4, odd_n)
+        return np.stack(out, -1)
+
+    rows = one_pass(x.astype(np.int64), lambda v: v << P1, CB - P1)
+    cols = one_pass(np.swapaxes(rows, -1, -2),
+                    lambda v: descale(v, P1), CB + P1)
+    return np.swapaxes(cols, -1, -2)
+
+
+def _quantise(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """jcdctmgr.c's quantiser with 16-bit DCT elements, as libjpeg-turbo
+    builds it with its SIMD code: each divisor (8 x the table entry) by
+    `compute_reciprocal`'s reciprocal, rounding correction and shift;
+    the magnitude is quantised and the sign put back."""
+    div = qt.astype(np.int64) * 8
+    b = np.floor(np.log2(div)).astype(np.int64)
+    r = 16 + b
+    fq, fr = (1 << r) // div, (1 << r) % div
+    c = div // 2
+    pow2 = fr == 0
+    fq = np.where(pow2, fq >> 1, np.where(fr > div // 2, fq + 1, fq))
+    r = np.where(pow2, r - 1, r)
+    c = np.where(~pow2 & (fr <= div // 2), c + 1, c)
+    mag = ((np.abs(coef) + c) * fq) >> r
+    return np.where(coef < 0, -mag, mag)
+
+
+def _rgb_to_ycc(img: np.ndarray) -> list:
+    """jccolor.c's `rgb_ycc_convert`: the fixed-point tables of
+    SCALEBITS 16, each output rounded as libjpeg rounds it."""
+    def fix(x):
+        return int(x * 65536 + 0.5)
+    r, g, b = (img[..., k].astype(np.int64) for k in range(3))
+    half, off = 1 << 15, 128 << 16
+    y = (fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + off + half
+          - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + off + half
+          - 1) >> 16
+    return [y, cb, cr]
+
+
+def _downsample(plane: np.ndarray, eh: int, ev: int,
+                cols: int) -> np.ndarray:
+    """jcsample.c's downsampling of a full-size plane whose rows are a
+    multiple of `ev`, by `eh` x `ev` into `cols` columns: the plane's right
+    edge repeated out to `cols * eh`, then h2v1 (bias 0, 1, 0, ...), h2v2
+    (bias 1, 2, 1, ...), or `int_downsample` (the rounded mean)."""
+    H, W = plane.shape
+    x = np.pad(plane, ((0, 0), (0, cols * eh - W)), mode="edge")
+    if eh == ev == 1:
+        return x
+    cells = x.reshape(H // ev, ev, cols, eh).sum(axis=(1, 3))
+    if (eh, ev) == (2, 1):
+        return (cells + (np.arange(cols) & 1)) >> 1
+    if (eh, ev) == (2, 2):
+        return (cells + 1 + (np.arange(cols) & 1)) >> 2
+    n = eh * ev
+    return (cells + n // 2) // n
+
+
+def _component_blocks(plane: np.ndarray, v: int, bw: int, bh: int,
+                      mcu_rows: int, qt: np.ndarray) -> np.ndarray:
+    """A downsampled component plane (rows, bw * 8) to its quantised blocks
+    (bh, bw, 64), zig-zag order: the plane's bottom edge repeated to whole
+    iMCU rows (jcprepare.c), each block through the islow FDCT and the
+    quantiser."""
+    rows = mcu_rows * v * 8
+    x = np.pad(plane, ((0, rows - plane.shape[0]), (0, 0)), mode="edge")
+    blocks = _blocks(x[:bh * 8] - 128)
+    q = _quantise(_fdct_islow(blocks).reshape(bh, bw, 64),
+                  qt.reshape(64))
+    return q[..., ZIGZAG]
 
 
 def _blocks(plane: np.ndarray) -> np.ndarray:
     """(H, W) with H, W multiples of 8 -> (H/8, W/8, 8, 8)."""
     H, W = plane.shape
     return plane.reshape(H // 8, 8, W // 8, 8).transpose(0, 2, 1, 3)
-
-
-def _quantised(plane: np.ndarray, qt: np.ndarray) -> np.ndarray:
-    """The blocks' DCT coefficients over `qt`, rounded: (by, bx, 64) in
-    zig-zag order."""
-    c = _dct_matrix()
-    coef = c @ (_blocks(plane) - 128.0) @ c.T
-    q = np.rint(coef.reshape(coef.shape[:2] + (64,)) / qt)
-    q[..., 1:] = np.clip(q[..., 1:], -1023, 1023)
-    return q[..., ZIGZAG].astype(np.int64)
 
 
 def _size(v: np.ndarray) -> np.ndarray:
@@ -247,13 +337,54 @@ def _dht(tc: int, th: int, spec) -> bytes:
     return bytes([(tc << 4) | th]) + bytes(counts) + bytes(symbols)
 
 
-def encode_jpeg(img: np.ndarray, quality: int = 95,
+def _coded_blocks(planes: list, factors: list, W: int, H: int, qts: list):
+    """The quantised blocks of the components in coded order, (N, 64), and
+    each block's component, as jccoefct.c's `compress_data` emits them.
+    One component is coded alone, block by block. Several are
+    interleaved, MCU by MCU; a block of an MCU past the component's edge
+    is a dummy block, all AC zero and the DC of the block before it: the
+    one to its left, or below the edge, the last block of the MCU's row
+    above."""
+    hm = max(h for h, _ in factors)
+    vm = max(v for _, v in factors)
+    mx, my = -(-W // (8 * hm)), -(-H // (8 * vm))
+    rows = -(-H // vm) * vm
+    grids = []
+    for plane, (h, v), qt in zip(planes, factors, qts):
+        bw = -(-W * h // (8 * hm))
+        bh = -(-H * v // (8 * vm))
+        full = np.pad(plane, ((0, rows - H), (0, 0)), mode="edge")
+        down = _downsample(full, hm // h, vm // v, bw * 8)
+        real = _component_blocks(down, v, bw, bh, my, qt)
+        if len(planes) == 1:
+            return real.reshape(-1, 64), np.zeros(bw * bh, np.int64)
+        grid = np.zeros((my * v, mx * h, 64), np.int64)
+        grid[:bh, :bw] = real
+        grid[:bh, bw:, 0] = grid[:bh, bw - 1:bw, 0]
+        for r in range(bh, my * v):
+            last = grid[r - 1, h - 1::h, 0]
+            grid[r, :, 0] = np.repeat(last, h)
+        # (my, mx, v * h, 64): each MCU's blocks row by row
+        grids.append(grid.reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4)
+                     .reshape(my, mx, v * h, 64))
+    blocks = np.concatenate(grids, axis=2).reshape(-1, 64)
+    per_mcu = np.repeat(np.arange(len(planes)), [h * v for h, v in factors])
+    return blocks, np.tile(per_mcu, mx * my)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 75,
                 subsampling: str = "4:2:0", factors=None) -> bytes:
-    """A baseline JFIF JPEG of an (H, W) grey or (H, W, 3) RGB uint8 image:
-    Annex K's quantisation tables scaled by `quality` as IJG scales them,
-    Annex K's Huffman tables, luma sampled at `factors` (h, v) over chroma
-    (by default `subsampling`'s: 4:4:4 (1, 1) or 4:2:0 (2, 2)), chroma
-    averaged over each h x v cell."""
+    """A baseline JFIF JPEG of an (H, W) grey or (H, W, 3) RGB uint8 image,
+    as PIL's `Image.fromarray(img).save(f, "JPEG", quality=quality)`
+    writes it through libjpeg-turbo (whose defaults PIL keeps): Annex K's
+    quantisation tables scaled by `quality` (`jpeg_quality_scaling`,
+    clamped to 255) and its Huffman tables; the fixed-point RGB-to-YCbCr
+    conversion, chroma downsampling with libjpeg's biases, the islow
+    integer FDCT, the reciprocal quantiser and the dummy blocks of the
+    MCUs past the image's edge. Luma is sampled at `factors` (h, v) over
+    chroma, by default `subsampling`'s: 4:4:4 (1, 1) or 4:2:0 (2, 2, PIL's
+    default). The file decodes to PIL's pixels at every quality and size,
+    and its entropy-coded data is libjpeg-turbo's, byte for byte."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
             img.ndim == 3 and img.shape[2] != 3):
@@ -267,56 +398,35 @@ def encode_jpeg(img: np.ndarray, quality: int = 95,
     H, W = img.shape[:2]
     grey = img.ndim == 2
     h, v = (1, 1) if grey else factors
-    mw, mh = 8 * h, 8 * v
-    Hp, Wp = -(-H // mh) * mh, -(-W // mw) * mw
-    x = np.pad(img.astype(np.float64),
-               ((0, Hp - H), (0, Wp - W)) + ((0, 0),) * (img.ndim - 2),
-               mode="edge")
     qy, qc = quant_table(Q_LUMA, quality), quant_table(Q_CHROMA, quality)
     if grey:
-        planes = [x]
+        planes, comp_factors, qts = [img.astype(np.int64)], [(1, 1)], [qy]
     else:
-        r, g, b = x[..., 0], x[..., 1], x[..., 2]
-        y = 0.299 * r + 0.587 * g + 0.114 * b
-        cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128
-        cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128
-        cells = [c.reshape(Hp // v, v, Wp // h, h).mean(axis=(1, 3))
-                 for c in (cb, cr)]
-        planes = [y] + cells
-    quant = [_quantised(p, qy if i == 0 else qc)
-             for i, p in enumerate(planes)]
-    # coded order: each MCU's h x v luma blocks row by row, then Cb, Cr
-    if grey:
-        blocks = quant[0].reshape(-1, 64)
-        comp = np.zeros(len(blocks), np.int64)
-    else:
-        my, mx = Hp // mh, Wp // mw
-        luma = quant[0].reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4)
-        parts = [luma.reshape(my, mx, h * v, 64)] + [
-            q.reshape(my, mx, 1, 64) for q in quant[1:]]
-        blocks = np.concatenate(parts, axis=2).reshape(-1, 64)
-        comp = np.tile(np.repeat(np.arange(3), [h * v, 1, 1]), my * mx)
+        planes = _rgb_to_ycc(img)
+        comp_factors, qts = [(h, v), (1, 1), (1, 1)], [qy, qc, qc]
+    blocks, comp = _coded_blocks(planes, comp_factors, W, H, qts)
     luma_t = (_codes(DC_LUMA), _codes(AC_LUMA))
     chroma_t = (_codes(DC_CHROMA), _codes(AC_CHROMA))
     tables = [luma_t] if grey else [luma_t, chroma_t, chroma_t]
     data = _entropy_code(blocks, comp, tables)
 
+    # the markers in libjpeg's order: each table in a segment of its own
     out = [b"\xff\xd8",
            _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    dqt = bytes([0]) + bytes(qy[ZIGZAG].astype(np.uint8))
-    if not grey:
-        dqt += bytes([1]) + bytes(qc[ZIGZAG].astype(np.uint8))
-    out.append(_segment(0xDB, dqt))
+    for k, qt in enumerate([qy] if grey else [qy, qc]):
+        out.append(_segment(0xDB, bytes([k]) + bytes(
+            qt[ZIGZAG].astype(np.uint8))))
     ncomp = 1 if grey else 3
     sof = bytes([8]) + H.to_bytes(2, "big") + W.to_bytes(2, "big") \
         + bytes([ncomp, 1, (h << 4) | v, 0])
     if not grey:
         sof += bytes([2, 0x11, 1, 3, 0x11, 1])
     out.append(_segment(0xC0, sof))
-    dht = _dht(0, 0, DC_LUMA) + _dht(1, 0, AC_LUMA)
+    out += [_segment(0xC4, _dht(0, 0, DC_LUMA)),
+            _segment(0xC4, _dht(1, 0, AC_LUMA))]
     if not grey:
-        dht += _dht(0, 1, DC_CHROMA) + _dht(1, 1, AC_CHROMA)
-    out.append(_segment(0xC4, dht))
+        out += [_segment(0xC4, _dht(0, 1, DC_CHROMA)),
+                _segment(0xC4, _dht(1, 1, AC_CHROMA))]
     sos = bytes([ncomp, 1, 0x00]) + (b"" if grey else bytes([2, 0x11, 3,
                                                             0x11]))
     out.append(_segment(0xDA, sos + bytes([0, 63, 0])))
@@ -324,7 +434,7 @@ def encode_jpeg(img: np.ndarray, quality: int = 95,
     return b"".join(out)
 
 
-def write_jpeg(path, img: np.ndarray, quality: int = 95,
+def write_jpeg(path, img: np.ndarray, quality: int = 75,
                subsampling: str = "4:2:0"):
     """Write `encode_jpeg(img, quality, subsampling)` to `path`, making its
     directory."""

@@ -161,3 +161,13 @@ def eval_ate(pose_estimate: np.ndarray, pose_gt: np.ndarray) -> float:
     pg = np.asarray(pose_gt, dtype=np.float64).T
     _, _, trans_error = horn_align(pe, pg)
     return float(np.sqrt(np.dot(trans_error, trans_error) / len(trans_error)) * 100)
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """A 4x4 transform applied to (..., 3) points."""
+    return pts @ T[:3, :3].T + T[:3, 3]
+
+
+def transform_dirs(T: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """A 4x4 transform's rotation applied to (..., 3) directions."""
+    return dirs @ T[:3, :3].T

@@ -11,8 +11,11 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# samples a pixel of each colour type holds: grey, RGB, grey-alpha, RGBA
-CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# samples a pixel of each colour type holds: grey, RGB, palette,
+# grey-alpha, RGBA; and the bit depths the specification allows each
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+BIT_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+              4: (8, 16), 6: (8, 16)}
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -58,7 +61,8 @@ def _unfilter(data: bytes, H: int, W: int, bpp: int) -> np.ndarray:
     pixel to its left (a), above (b) and above-left (c), all decoded
     already. Pixel (y, x) needs only pixels of smaller y + x, so the
     pixels are decoded one anti-diagonal at a time, each diagonal in one
-    vector step whatever its rows' filters."""
+    vector step whatever its rows' filters. Below 8 bits a pixel here is
+    one byte, as the specification's filters count it."""
     buf = np.frombuffer(data, np.uint8)
     if buf.size != H * (W * bpp + 1):
         raise ValueError(f"PNG data holds {buf.size} bytes, wanted "
@@ -82,14 +86,44 @@ def _unfilter(data: bytes, H: int, W: int, bpp: int) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8).reshape(H, W * bpp)
 
 
+# Adam7: each pass's (first row, first column, row step, column step)
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _samples(data: bytes, H: int, W: int, ch: int, bits: int):
+    """The (H, W, ch) samples of one image's (or one Adam7 pass's) filtered
+    scanlines: uint8 below and at 8 bits, uint16 at 16. Returns them and
+    the bytes the scanlines took."""
+    if H == 0 or W == 0:                  # an empty pass has no scanlines
+        return np.zeros((H, W, ch), np.uint16 if bits == 16 else np.uint8), 0
+    bpp = max(1, ch * bits // 8)
+    row_bytes = -(-W * ch * bits // 8)
+    used = H * (row_bytes + 1)
+    rows = _unfilter(data[:used], H, row_bytes // bpp, bpp)
+    if bits == 16:
+        return rows.view(">u2").reshape(H, W, ch).astype(np.uint16), used
+    if bits == 8:
+        return rows.reshape(H, W, ch), used
+    per = 8 // bits
+    shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << bits) - 1)
+    return vals.reshape(H, row_bytes * per)[:, :W, None], used
+
+
 def read_png(path: str) -> np.ndarray:
-    """Decode a non-interlaced 8- or 16-bit grey, grey-alpha, RGB or RGBA
-    PNG into the array that PIL's `np.asarray(Image.open(path))` gives:
-    (H, W) for grey (uint8, or uint16 at 16 bits), (H, W, C) uint8
-    otherwise. As in PIL, a 16-bit colour image keeps each sample's high
-    byte, and 16-bit grey-alpha becomes RGBA (the grey in R, G and B).
-    Raises `ValueError` on any other PNG (palette, other bit depths,
-    interlacing) and on a malformed file."""
+    """Decode a PNG into the array that PIL's `np.asarray(Image.open(path))`
+    gives, for every colour type and bit depth the specification allows,
+    interlaced (Adam7) or not:
+    - grey: (H, W) uint8 at 8 bits, uint16 at 16, bool at 1 bit (PIL's
+      mode `1`), and at 2 and 4 bits uint8 scaled to 0-255 (x 85, x 17);
+    - palette: the (H, W) uint8 indices (PIL's mode `P`), with or without
+      a `tRNS` chunk;
+    - grey-alpha, RGB and RGBA: (H, W, C) uint8. As in PIL, a 16-bit
+      colour image keeps each sample's high byte, and 16-bit grey-alpha
+      becomes RGBA (the grey in R, G and B).
+    Raises `ValueError` on an unknown colour type, a bit depth its type
+    does not allow, an unknown interlace method and a malformed file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != SIGNATURE:
@@ -110,19 +144,39 @@ def read_png(path: str) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or IDAT chunk")
     W, H, bits, colour_type, _, _, interlace = header
-    if colour_type not in CHANNELS or bits not in (8, 16) or interlace:
-        raise ValueError(f"{path}: colour type {colour_type}, {bits} bits, "
-                         f"interlace {interlace}: only non-interlaced 8- and "
-                         "16-bit grey, grey-alpha, RGB and RGBA are read")
+    if colour_type not in BIT_DEPTHS:
+        raise ValueError(f"{path}: unknown colour type {colour_type}")
+    if bits not in BIT_DEPTHS[colour_type]:
+        raise ValueError(f"{path}: {bits} bits for colour type "
+                         f"{colour_type}, which allows "
+                         f"{BIT_DEPTHS[colour_type]}")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: unknown interlace method {interlace}")
     ch = CHANNELS[colour_type]
-    bpp = ch * bits // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), H, W, bpp)
-    if bits == 8:
-        img = rows.reshape(H, W, ch)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        img = np.zeros((H, W, ch), np.uint16 if bits == 16 else np.uint8)
+        pos = 0
+        for y0, x0, dy, dx in ADAM7:
+            ph, pw = -(-max(H - y0, 0) // dy), -(-max(W - x0, 0) // dx)
+            part, used = _samples(raw[pos:], ph, pw, ch, bits)
+            img[y0::dy, x0::dx] = part
+            pos += used
+        if pos != len(raw):
+            raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
+                             f"wanted {pos}")
     else:
-        img = rows.view(">u2").reshape(H, W, ch)
+        img, used = _samples(raw, H, W, ch, bits)
+        if used != len(raw):
+            raise ValueError(f"PNG data holds {len(raw)} bytes, wanted "
+                             f"{used}")
+    if bits < 8 and colour_type == 0:
+        img = img[..., 0]
+        return img.astype(bool) if bits == 1 else img * (255 // (
+            (1 << bits) - 1))
+    if bits == 16:
         if colour_type == 0:
-            return img[..., 0].astype(np.uint16)
+            return img[..., 0]
         img = (img >> 8).astype(np.uint8)
         if colour_type == 4:
             img = img[..., [0, 0, 0, 1]]

@@ -1,11 +1,15 @@
 """`resize_like_pil`: PIL's `Image.resize(size)` at its default resample,
-BICUBIC, on the host in numpy, bit for bit, for grey (`L`) and RGB uint8
-images. The arithmetic is Pillow's `libImaging/Resample.c`: each axis's
-coefficients in double (`precompute_coeffs`, the cubic with a = -0.5 over
-a support widened by the ratio when shrinking, normalised per output
-pixel), rounded to integers of `PRECISION_BITS` = 22 fractional bits; the
-horizontal pass first, each output clipped to uint8, then the vertical
-pass; an axis that keeps its size is not resampled."""
+BICUBIC, on the host in numpy, bit for bit, for PIL's modes `L`, `RGB`,
+`LA`, `RGBA` and `I;16`. The arithmetic is Pillow's
+`libImaging/Resample.c`: each axis's coefficients in double
+(`precompute_coeffs`, the cubic with a = -0.5 over a support widened by
+the ratio when shrinking, normalised per output pixel); for 8-bit bands
+rounded to integers of `PRECISION_BITS` = 22 fractional bits, each output
+clipped to uint8; for `I;16` summed in double and rounded; the horizontal
+pass first, then the vertical; an axis that keeps its size is not
+resampled. `LA` and `RGBA` are resampled premultiplied by alpha, as
+Pillow's `Image.resize` converts them to `La` / `RGBa` and back
+(`libImaging/Convert.c`)."""
 
 from __future__ import annotations
 
@@ -24,10 +28,10 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def coefficients(in_size: int, out_size: int):
-    """Resample.c's `precompute_coeffs` and `normalize_coeffs_8bpc` for one
-    axis: (xmin (out,), int64 weights (out, ksize)), input pixel
-    xmin[i] + t weighted by weights[i, t] (0 past the pixel's window)."""
+def coefficients_double(in_size: int, out_size: int):
+    """Resample.c's `precompute_coeffs` for one axis: (xmin (out,), the
+    normalised double weights (out, ksize)), input pixel xmin[i] + t
+    weighted by weights[i, t] (0 past the pixel's window)."""
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
     support = SUPPORT * filterscale
@@ -47,9 +51,17 @@ def coefficients(in_size: int, out_size: int):
         ww = ww + w[:, k]
     w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None],
                  w)
+    return xmin, w
+
+
+def coefficients(in_size: int, out_size: int):
+    """Resample.c's `precompute_coeffs` and `normalize_coeffs_8bpc` for one
+    axis: (xmin (out,), int64 weights (out, ksize)), the double weights
+    rounded to `PRECISION_BITS` fractional bits."""
+    xmin, w = coefficients_double(in_size, out_size)
     one = float(1 << PRECISION_BITS)
     k = np.trunc(np.where(w < 0, -0.5 + w * one, 0.5 + w * one))
-    return xmin, np.where(live, k, 0).astype(np.int64)
+    return xmin, k.astype(np.int64)
 
 
 def _resample(x: np.ndarray, out_size: int) -> np.ndarray:
@@ -70,22 +82,80 @@ def _resample(x: np.ndarray, out_size: int) -> np.ndarray:
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
+def _resample16(x: np.ndarray, out_size: int) -> np.ndarray:
+    """One pass of Resample.c's `ImagingResample*_16bpc` along axis 0 of a
+    uint16 array: the double coefficients summed in the C loop's order,
+    `ROUND_UP`, then the low and the high byte each clipped to 0-255 on
+    their own, as the C code stores them."""
+    xmin, w = coefficients_double(x.shape[0], out_size)
+    shape = (out_size,) + (1,) * (x.ndim - 1)
+    ss = np.zeros((out_size,) + x.shape[1:])
+    for t in range(w.shape[1]):
+        ss = ss + np.take(x, np.minimum(xmin + t, x.shape[0] - 1),
+                          axis=0) * w[:, t].reshape(shape)
+    v = np.where(ss >= 0.0, ss + 0.5, ss - 0.5).astype(np.int64)  # C's (int)
+    lo = np.clip(np.fmod(v, 256), 0, 255)
+    hi = np.clip(v >> 8, 0, 255)
+    return (hi * 256 + lo).astype(np.uint16)
+
+
+def _resize_planes(img: np.ndarray, W: int, H: int, one_pass) -> np.ndarray:
+    """The horizontal pass first, then the vertical; an axis that keeps its
+    size is not resampled."""
+    out = img
+    if W != img.shape[1]:
+        cols = np.ascontiguousarray(np.swapaxes(out, 0, 1))
+        out = np.ascontiguousarray(np.swapaxes(one_pass(cols, W), 0, 1))
+    if H != img.shape[0]:
+        out = one_pass(np.ascontiguousarray(out), H)
+    return out
+
+
+def _pass8(x: np.ndarray, out_size: int) -> np.ndarray:
+    return _resample(x.astype(np.int32), out_size)
+
+
+def _premultiply(img: np.ndarray) -> np.ndarray:
+    """Convert.c's `rgbA2rgba` / `lA2la`: each colour sample times alpha
+    over 255 with `MULDIV255`'s rounding."""
+    a = img[..., -1:].astype(np.int64)
+    tmp = img[..., :-1].astype(np.int64) * a + 128
+    return np.concatenate([((tmp >> 8) + tmp) >> 8, a], axis=-1)
+
+
+def _unpremultiply(img: np.ndarray) -> np.ndarray:
+    """Convert.c's `rgba2rgbA` / `la2lA`: each colour sample times 255 over
+    alpha, clipped, where alpha is neither 0 nor 255."""
+    a = img[..., -1:].astype(np.int64)
+    c = img[..., :-1].astype(np.int64)
+    div = np.clip(255 * c // np.maximum(a, 1), 0, 255)
+    return np.concatenate([np.where((a == 0) | (a == 255), c, div), a],
+                          axis=-1).astype(np.uint8)
+
+
 def resize_like_pil(img: np.ndarray, size) -> np.ndarray:
-    """`np.asarray(Image.fromarray(img).resize(size))` for an (H, W) or
-    (H, W, 3) uint8 `img` and `size` = (width, height). Raises
-    `ValueError` on any other image."""
+    """`np.asarray(Image.fromarray(img).resize(size))` at size = (width,
+    height), for the arrays of PIL's modes `L` ((H, W) uint8), `I;16`
+    ((H, W) uint16), `LA` ((H, W, 2) uint8), `RGB` ((H, W, 3) uint8) and
+    `RGBA` ((H, W, 4) uint8). As in Pillow, an image at its own size comes
+    back as a copy, whatever its type. `LA` and `RGBA` are resampled with
+    their colour premultiplied by alpha (Pillow's `La` / `RGBa`), each
+    band as `L`; `I;16` through the 16-bit path. Raises `ValueError` on
+    any other image."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
-            img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(f"resizing reads (H, W) or (H, W, 3) uint8 images "
-                         f"(PIL's L and RGB), got {img.dtype} {img.shape}")
     W, H = (int(s) for s in size)
     if W < 1 or H < 1:
         raise ValueError(f"size {size} is not positive")
-    out = img
-    if W != img.shape[1]:                  # the horizontal pass first
-        cols = np.ascontiguousarray(np.swapaxes(out, 0, 1), np.int32)
-        out = np.ascontiguousarray(np.swapaxes(_resample(cols, W), 0, 1))
-    if H != img.shape[0]:
-        out = _resample(np.ascontiguousarray(out, np.int32), H)
-    return out.copy() if out is img else out
+    if img.ndim >= 2 and img.shape[:2] == (H, W):
+        return img.copy()
+    if img.dtype == np.uint16 and img.ndim == 2:
+        return _resize_planes(img, W, H, _resample16)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] not in (2, 3, 4)):
+        raise ValueError(f"resizing reads (H, W) uint8 or uint16 and "
+                         f"(H, W, 2 / 3 / 4) uint8 images (PIL's L, I;16, "
+                         f"LA, RGB and RGBA), got {img.dtype} {img.shape}")
+    if img.ndim == 3 and img.shape[2] in (2, 4):
+        return _unpremultiply(_resize_planes(_premultiply(img), W, H,
+                                             _pass8))
+    return _resize_planes(img, W, H, _pass8)

@@ -1,6 +1,8 @@
 """The port stands on its own: no module of `dqo_map_tpu_torch/`, and not
-`chip_smoke.py`, imports `jax` or the JAX package `dqo_map_tpu`, not even
-lazily inside a function. Checked on the source, by AST scan."""
+`chip_smoke.py`, imports `jax`, `jaxlib`, the JAX package `dqo_map_tpu`
+or `PIL`, not even lazily inside a function: the card's machine has no
+PIL, and the port reads and writes its PNG and JPEG files itself.
+Checked on the source, by AST scan."""
 
 import ast
 from pathlib import Path
@@ -9,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "dqo_map_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "dqo_map_tpu")
+FORBIDDEN = ("jax", "jaxlib", "dqo_map_tpu", "PIL")
 
 
 def _imported_modules(path: Path):

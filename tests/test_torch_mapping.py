@@ -219,6 +219,29 @@ def test_error_remove_and_prune_match_jax(random_map, rng, scene):
     assert_states_match(pp, jp)
 
 
+def test_error_remove_step_matches_jax(random_map, scene):
+    """`error_remove_step`: `error_remove_from` on each package's own render
+    of the map at a frame, the stable Gaussians' counters moved by the
+    depth error of a displaced frame."""
+    from dqo_map_tpu_torch.config import default_config as port_config
+    from dqo_map_tpu_torch.slam.renderer import Renderer
+    cams, fms, _, settings = scene
+    fm = dict(fms[0], depth_map=fms[0]["depth_map"] + 0.4)
+    ref = jax_state(random_map)
+    port = map_state_from_numpy(random_map, "cpu")
+    psettings = Renderer(port_config(min_depth=0.1, max_depth=8.0).map, W,
+                         H).settings
+    jr = jmapper.error_remove_step(ref, {k: jnp.asarray(v) for k, v in fm.items()},
+                                   cams[0].render_inputs(), settings, 0.1,
+                                   0.1, 1000.0, jnp.int32(9))
+    pr = mapper.error_remove_step(port, _torch(fm),
+                                  port_camera(cams[0]).render_inputs("cpu"),
+                                  psettings, 0.1, 0.1, 1000.0, 9)
+    assert_states_match(pr, jr)
+    moved = np.asarray(jr.depth_err_cnt) != random_map["depth_err_cnt"]
+    assert moved.any()
+
+
 def test_knn_matches_exact_jax(rng):
     M, N = 300, 2000
     q = rng.uniform(-1, 1, (M, 3)).astype(np.float32)

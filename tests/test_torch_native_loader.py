@@ -7,8 +7,13 @@ CPU.
   and RGBA, each with every row filter (none, sub, up, average, Paeth)
   and with the five mixed row by row; PIL keeps the high byte of 16-bit
   colour samples and turns 16-bit grey-alpha into RGBA, and so does
-  `read_png`. The PNGs are written here by a small encoder that applies
-  the filters the PNG specification defines.
+  `read_png`. Palette files at 1, 2, 4 and 8 bits (the indices, with and
+  without tRNS), 1-bit grey (bool), 2- and 4-bit grey (scaled), and
+  Adam7 interlacing of every colour type and bit depth; the committed
+  PNG fixtures' hashes. A bit depth a colour type does not allow, an
+  unknown colour type or interlace method raise. The PNGs are written
+  here by small encoders that apply the filters the PNG specification
+  defines (`torch_fixtures/make_png_fixtures.py::png_bytes`).
 - The readers decode PNG and JPEG frames and resize them without PIL
   (PIL hidden from the import), exactly as PIL does.
 - The native loader: its own g++ build into `_build/`, cached by hash;
@@ -18,9 +23,11 @@ CPU.
   file that does not decode giving None and `IOError`.
 """
 
+import json
 import struct
 import sys
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,6 +37,7 @@ from dqo_map_tpu.data import native_loader as jloader
 from dqo_map_tpu_torch.data import native_loader as loader
 from dqo_map_tpu_torch.data import readers
 from dqo_map_tpu_torch.utils.png import read_png
+from torch_fixtures.make_png_fixtures import digest, png_bytes
 
 CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
@@ -101,14 +109,105 @@ def test_read_png_matches_pil(tmp_path, bits, colour_type, kinds):
         assert np.array_equal(got, img)          # the samples themselves
 
 
-def test_read_png_refuses_what_it_does_not_read(tmp_path):
+def _header_swapped(data: bytes, bits: int = None, colour_type: int = None,
+                    interlace: int = None) -> bytes:
+    """The PNG with its IHDR's bit depth, colour type or interlace method
+    replaced (and the chunk's CRC made anew)."""
+    W, H, b, c, comp, filt, lace = struct.unpack(">IIBBBBB", data[16:29])
+    body = struct.pack(">IIBBBBB", W, H, b if bits is None else bits,
+                       c if colour_type is None else colour_type, comp, filt,
+                       lace if interlace is None else interlace)
+    return data[:8] + _chunk(b"IHDR", body) + data[33:]
+
+
+REFUSED_PNG = {
+    # RGB at 4 bits: no such PNG
+    "bad_depth": (lambda d: _header_swapped(d, bits=4),
+                  "4 bits for colour type 2"),
+    "unknown_type": (lambda d: _header_swapped(d, colour_type=5),
+                     "unknown colour type 5"),
+    "interlace_method": (lambda d: _header_swapped(d, interlace=2),
+                         "unknown interlace method 2"),
+    "not_png": (lambda d: b"not a png", "not a PNG"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(REFUSED_PNG))
+def test_read_png_refuses_what_it_does_not_read(tmp_path, kind):
     path = tmp_path / "p.png"
-    Image.fromarray(np.zeros((4, 4), np.uint8), "L").convert("P").save(path)
-    with pytest.raises(ValueError, match="colour type 3"):
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
+    make, why = REFUSED_PNG[kind]
+    path.write_bytes(make(path.read_bytes()))
+    with pytest.raises(ValueError, match=why):
         read_png(str(path))
-    (tmp_path / "x.png").write_bytes(b"not a png")
-    with pytest.raises(ValueError, match="not a PNG"):
-        read_png(str(tmp_path / "x.png"))
+
+
+# (colour type, bits) that PIL reads in modes other than the 8- and 16-bit
+# samples above: palette (`P`, the indices), 1-bit grey (`1`, bool), 2-
+# and 4-bit grey (`L`, scaled)
+LOW = [(3, 1), (3, 2), (3, 4), (3, 8), (0, 1), (0, 2), (0, 4)]
+
+
+@pytest.mark.parametrize("trns", [False, True], ids=["opaque", "trns"])
+@pytest.mark.parametrize("ct_bits", LOW, ids=lambda c: f"type{c[0]}_{c[1]}bit")
+def test_read_png_palette_and_low_bits_match_pil(tmp_path, ct_bits, trns):
+    ct, bits = ct_bits
+    rng = np.random.default_rng(ct * 10 + bits)
+    path = tmp_path / "t.png"
+    for H, W in ((1, 1), (3, 5), (9, 13), (17, 10)):
+        for interlace in (False, True):
+            n = min(2 ** bits, 200) if ct == 3 else 0
+            img = rng.integers(0, n or 2 ** bits, (H, W))
+            pal = rng.integers(0, 256, (n, 3)) if ct == 3 else None
+            t = None
+            if trns:
+                t = (bytes(rng.integers(0, 256, max(1, n // 2)).astype(
+                    np.uint8)) if ct == 3 else int(img[0, 0]).to_bytes(2, "big"))
+            path.write_bytes(png_bytes(img, bits, ct, interlace,
+                                       (0, 1, 2, 3, 4), pal, t))
+            got, ref = read_png(str(path)), np.asarray(Image.open(path))
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            assert np.array_equal(got, ref), (H, W, interlace)
+
+
+@pytest.mark.parametrize("colour_type", [0, 2, 4, 6],
+                         ids=["grey", "rgb", "grey_alpha", "rgba"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_read_png_adam7_matches_pil(tmp_path, bits, colour_type):
+    """Adam7: seven passes, each its own filtered scanlines; sizes that
+    leave some passes empty."""
+    rng = np.random.default_rng(bits + colour_type)
+    path = tmp_path / "i.png"
+    for H, W in ((1, 1), (2, 3), (5, 4), (8, 8), (19, 23)):
+        img = _image(rng, bits, colour_type, H, W)
+        path.write_bytes(png_bytes(img, bits, colour_type, True,
+                                   (0, 1, 2, 3, 4)))
+        got, ref = read_png(str(path)), np.asarray(Image.open(path))
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert np.array_equal(got, ref), (H, W)
+
+
+PNG_FIXTURES = Path(__file__).resolve().parent / "torch_fixtures" / "png"
+PNG_HASHES = json.loads((PNG_FIXTURES / "hashes.json").read_text())
+
+
+@pytest.mark.parametrize("name", sorted(PNG_HASHES))
+def test_png_fixture_hashes_are_pils(name):
+    """The committed PNG fixtures (`make_png_fixtures.py`), which
+    `chip_smoke.py` holds `read_png` to on the card, against PIL."""
+    path = PNG_FIXTURES / name
+    ref = np.asarray(Image.open(path))
+    want = PNG_HASHES[name]
+    assert list(ref.shape) == want["shape"] and str(ref.dtype) == want["dtype"]
+    assert digest(ref) == want["sha256"]
+    got = read_png(str(path))
+    assert got.dtype == ref.dtype and np.array_equal(got, ref)
+
+
+def test_png_fixtures_are_small():
+    files = sorted(PNG_FIXTURES.glob("*.png"))
+    assert {f.name for f in files} == set(PNG_HASHES)
+    assert sum(f.stat().st_size for f in files) < 20_000
 
 
 def _pil_load_image(path, size=None):

@@ -5,7 +5,11 @@ Each layout is written in `tmp_path` with PIL: Replica with semantics and
 detections (JPEG colour, one semantic PNG at another size), Ours /
 ScanNet++ with colour at twice the depth's size, RO-MAP with JPEG colour,
 TUM with colour (PNG and JPEG) at another size than its depth, COLMAP
-with JPEG images, and Blender with RGBA PNGs. Each is read through
+with JPEG images, and Blender with RGBA PNGs; Replica with RGBA, LA and
+16-bit semantic PNGs, and TUM with RGBA, LA, 16-bit grey, palette,
+progressive JPEG and Adam7 colour frames, each at its own size and
+resized (a real resize of RGBA and LA goes through Pillow's premultiplied
+alpha, of 16-bit grey through its 16-bit path). Each is read through
 `dqo_map_tpu.data.readers` (PIL), then through
 `dqo_map_tpu_torch.data.readers` with `PIL` set to None in `sys.modules`:
 every camera's image, depth, semantics, instance, poses, intrinsics,
@@ -150,7 +154,76 @@ def _blender(root, rng):
     return str(root), {}
 
 
+def _replica_modes(root, rng):
+    """Replica whose semantic PNGs are RGBA and LA at the depth's own size
+    (read as they are, `[..., :3]` keeping what there is), then RGBA, LA
+    and 16-bit grey at twice the size (resized)."""
+    path, kwargs = _replica(root, rng)
+    sem = root / "office0" / "semantic_colors"
+    for i, (mode, scale) in enumerate((("RGBA", 1), ("LA", 1), ("RGBA", 2),
+                                       ("LA", 2))):
+        ch = len(mode)
+        img = rng.integers(0, 256, (H * scale, W * scale, ch)).astype(np.uint8)
+        img[..., -1] = rng.choice([0, 255, 7, 128], img.shape[:2])
+        Image.fromarray(img, mode).save(sem / f"semantic_color{i:06d}.png")
+    grey16 = rng.integers(0, 2 ** 16, (2 * H, 2 * W)).astype(np.uint16)
+    Image.fromarray(grey16).save(sem / f"semantic_color{4:06d}.png")
+    scene = root / "office0"
+    _rgbd(rng, scene / "results" / f"frame{4:06d}.jpg",
+          scene / "results" / f"depth{4:06d}.png", 6553.5, quality=90)
+    lines = (scene / "traj.txt").read_text().splitlines()
+    (scene / "traj.txt").write_text("\n".join(lines + [lines[-1]]) + "\n")
+    return path, dict(use_semantics=True)
+
+
+def _tum_modes(root, rng):
+    """TUM whose colour frames are RGBA, LA, 16-bit grey, palette,
+    progressive JPEG and Adam7 PNG, each at the depth's size and at
+    another size."""
+    from torch_fixtures.make_png_fixtures import png_bytes
+    path, kwargs = _tum(root, rng)
+    rgb_txt, depth_txt, gt_txt = ([], [], [])
+    kinds = ("RGBA", "LA", "I;16", "P", "progressive", "adam7")
+    for i, (kind, grow) in enumerate((k, g) for k in kinds for g in (0, 1)):
+        t = 200.0 + 0.05 * i
+        cw, ch = W + 24 * grow, H + 18 * grow
+        name = f"rgb/m{i}" + (".jpg" if kind == "progressive" else ".png")
+        if kind in ("RGBA", "LA"):
+            img = rng.integers(0, 256, (ch, cw, len(kind))).astype(np.uint8)
+            img[..., -1] = rng.choice([0, 255, 3, 200], (ch, cw))
+            Image.fromarray(img, kind).save(root / name)
+        elif kind == "I;16":
+            Image.fromarray(rng.integers(0, 2 ** 16, (ch, cw)).astype(
+                np.uint16)).save(root / name)
+        elif kind == "P":
+            if grow:          # PIL resizes a palette image NEAREST: refused
+                continue
+            img = Image.fromarray(rng.integers(0, 256, (ch, cw, 3)).astype(
+                np.uint8)).convert("P")
+            img.save(root / name)
+        elif kind == "progressive":
+            Image.fromarray(rng.integers(0, 256, (ch, cw, 3)).astype(
+                np.uint8)).save(root / name, quality=85, progressive=True)
+        else:
+            (root / name).write_bytes(png_bytes(
+                rng.integers(0, 256, (ch, cw, 3)), 8, 2, interlace=True,
+                kinds=(0, 1, 2, 3, 4)))
+        _rgbd(rng, root / "rgb" / "unused.png", root / f"depth/m{i}.png",
+              5000.0)
+        rgb_txt.append(f"{t:.4f} {name}")
+        depth_txt.append(f"{t + 0.003:.4f} depth/m{i}.png")
+        gt_txt.append(f"{t:.4f} {0.01 * i} 0 0 0 0 0 1")
+    (root / "rgb.txt").write_text("# rgb\n" + "\n".join(rgb_txt) + "\n")
+    (root / "depth.txt").write_text("# depth\n" + "\n".join(depth_txt)
+                                    + "\n")
+    (root / "groundtruth.txt").write_text("# gt\n" + "\n".join(gt_txt)
+                                          + "\n")
+    return path, kwargs
+
+
 LAYOUTS = {"replica": (_replica, "read_replica"),
+           "replica_modes": (_replica_modes, "read_replica"),
+           "tum_modes": (_tum_modes, "read_tum"),
            "ours": (_ours, "read_ours"),
            "romap": (_romap, "read_romap"),
            "tum": (_tum, "read_tum"),
@@ -182,8 +255,29 @@ def test_reader_matches_jax_without_pil(tmp_path, monkeypatch, layout):
         assert g.detections == w.detections
     if layout == "replica":
         assert got[0].semantics is not None and got[0].detections
+    if layout == "replica_modes":
+        # JAX's `[..., :3]` keeps what an RGBA or LA image has, and cuts a
+        # grey image's columns
+        assert [g.semantics.shape for g in got] == [
+            (H, W, 3), (H, W, 2), (H, W, 3), (H, W, 2), (H, 3)]
+    if layout == "tum_modes":
+        assert len(got) == 11 and got[0].image.shape[-1] == 4
     if layout in ("replica", "ours", "romap", "tum"):
         assert got[0].depth is not None and got[0].image.ndim == 3
+
+
+def test_rgba_frame_at_its_own_size_reads_as_jax(tmp_path, monkeypatch):
+    """A 6x8 RGBA PNG loaded at (8, 6), its own size, gives (6, 8, 4) in
+    both packages (Pillow's resize returns a copy there)."""
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 256, (6, 8, 4)).astype(np.uint8)
+    path = str(tmp_path / "sem.png")
+    Image.fromarray(img, "RGBA").save(path)
+    want = jreaders._load_image(path, (8, 6))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    got = readers._load_image(path, (8, 6))
+    assert want.shape == got.shape == (6, 8, 4)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_readers_refuse_other_formats(tmp_path):

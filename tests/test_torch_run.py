@@ -96,7 +96,8 @@ def test_eval_picture_matches_jax(rng, tmp_path, size):
     from dqo_map_tpu.eval.evaluate import eval_picture as jeval
     from dqo_map_tpu_torch.eval.evaluate import eval_picture
     out, gt, gtd = _render_dict(rng, *size)
-    ref = jeval({k: jnp.asarray(v) for k, v in out.items()}, gt, gtd, 0.1, 5.0)
+    ref = jeval({k: jnp.asarray(v) for k, v in out.items()}, gt, gtd, 0.1,
+                5.0, save_path=str(tmp_path / "jax"))
     got = eval_picture({k: torch.as_tensor(v) for k, v in out.items()}, gt,
                        gtd, 0.1, 5.0, save_path=str(tmp_path))
     assert set(got) == set(ref)
@@ -106,14 +107,20 @@ def test_eval_picture_matches_jax(rng, tmp_path, size):
     for k in ("psnr", "ssim", "ms_ssim", "color_l1", "depth_l1_cm"):
         np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, err_msg=k)
 
+    # JAX's JPEGs (PIL, quality 75), byte for byte, of the strips
     u8 = lambda x: (np.clip(x, 0, 1) * 255).astype(np.uint8)  # noqa: E731
-    strip = np.asarray(Image.open(tmp_path / "color_compare.png"))
     img = out["render"]
-    assert (strip == u8(np.concatenate([img, gt, np.abs(img - gt)], 1))).all()
-    dstrip = np.asarray(Image.open(tmp_path / "depth_compare.png"))
     gate = np.where((gtd > 0.1) & (gtd < 5.0), gtd, 0.0)
-    assert (dstrip == u8(np.concatenate([out["depth"], gate], 1)
-                         / gate.max())).all()
+    strips = {"color_compare.jpg": u8(np.concatenate([img, gt, np.abs(img - gt)],
+                                                     1)),
+              "depth_compare.jpg": u8(np.concatenate([out["depth"], gate], 1)
+                                      / gate.max())}
+    for name, strip in strips.items():
+        data = (tmp_path / name).read_bytes()
+        assert data == (tmp_path / "jax" / name).read_bytes(), name
+        buf = io.BytesIO()
+        Image.fromarray(strip).save(buf, "JPEG", quality=75)
+        assert data == buf.getvalue(), name
 
 
 def test_loss_helpers_match_jax(rng):
@@ -433,12 +440,94 @@ def test_run_end_to_end(tmp_path, monkeypatch):
             == [kind for kind, _ in m.scan_log])
     assert _run_files(out) == {
         "scalars.jsonl",
-        "performance.json", "eval_render/color_compare.png",
-        "eval_render/depth_compare.png", "save_traj/pose_es.npy",
+        "performance.json", "eval_render/color_compare.jpg",
+        "eval_render/depth_compare.jpg", "save_traj/pose_es.npy",
         "save_traj/pose_gt.npy", "save_traj/poses.txt", "save_traj/ate.txt",
         "save_model/frame_0004/iter_0000_stable.ply",
         "save_model/frame_0004/iter_0000_merge.ply",
         "save_model/pcd_densify.ply"}
+
+
+def _tail_system(pkg, tmp_path, raising):
+    """A system of `pkg` whose `run()` goes straight to its tail (no frame,
+    the final pass, evaluation and map export stubbed), with the object
+    layer, and with `save_traj` and / or `record_iou` raising."""
+    from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
+    if pkg == "jax":
+        from dqo_map_tpu.config import default_config
+        from dqo_map_tpu.data.synthetic import synthetic_sequence as seq
+        from dqo_map_tpu.slam import system as mod
+        _, cams = seq(1, width=32, height=24)
+        kw = {}
+    else:
+        from dqo_map_tpu_torch.config import default_config
+        from dqo_map_tpu_torch.slam import system as mod
+        _, cams = synthetic_sequence(1, width=32, height=24)
+        kw = {"device": "cpu"}
+    out = tmp_path / pkg
+    system = mod.SLAMSystem(default_config(**dict(
+        RUN, save_path=str(out), use_object=True)), cameras=cams, **kw)
+    system.mapping.global_optimization = lambda *a, **k: None
+    system.mapping.save_model = lambda *a, **k: None
+    for name in ("_save_object_passes", "save_object_passes"):
+        setattr(system, name, lambda *a, **k: None)
+
+    def fail(what):
+        def raiser(*a, **k):
+            raise OSError(f"{what} cannot write")
+        return raiser
+
+    system.tracker.save_traj = (fail("save_traj") if "save_traj" in raising
+                                else lambda path: 0.5)
+    if "record_iou" in raising:
+        system.object_layer.record_iou = fail("record_iou")
+    return system, mod, out
+
+
+@pytest.mark.parametrize("raising", [("save_traj",), ("record_iou",),
+                                     ("save_traj", "record_iou")],
+                         ids=["traj", "iou", "both"])
+def test_run_tail_survives_as_jax(tmp_path, monkeypatch, capsys, raising):
+    """A failing trajectory write or IoU log is printed and the run carries
+    on to `performance.json` in both packages; `ate_cm` is None where the
+    trajectory failed."""
+    results, printed = {}, {}
+    metrics = {"psnr": 30.0, "depth_l1_cm": 1.0}
+    for pkg in ("jax", "port"):
+        system, mod, out = _tail_system(pkg, tmp_path, raising)
+        monkeypatch.setattr(mod, "eval_frame", lambda *a, **k: dict(metrics))
+        capsys.readouterr()
+        results[pkg] = system.run(eval_every=0, verbose=False, max_frames=0)
+        printed[pkg] = [x for x in capsys.readouterr().out.splitlines()
+                        if x.startswith("[slam]")]
+        assert (out / "performance.json").exists()
+        assert (out / "save_obj" / "iou.txt").exists() == (
+            "record_iou" not in raising)
+    assert printed["port"] == printed["jax"] == [
+        f"[slam] {'traj save' if w == 'save_traj' else w} failed: {w} "
+        "cannot write" for w in ("save_traj", "record_iou") if w in raising]
+    for r in results.values():
+        assert r["psnr"] == 30.0
+        assert r["ate_cm"] == (None if "save_traj" in raising else 0.5)
+
+
+def test_system_takes_a_dataset_as_jax(tmp_path):
+    """`SLAMSystem(cfg, dataset=...)` runs over the dataset's cameras, as
+    the JAX package's does; `cameras` wins over it."""
+    from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
+    from dqo_map_tpu_torch.slam.system import SLAMSystem
+
+    class Frames:
+        def __init__(self, n):
+            self.cameras = synthetic_sequence(n, width=32, height=24)[1]
+
+    cfg = _run_cfg(tmp_path)
+    ds = Frames(3)
+    system = SLAMSystem(cfg, dataset=ds, device="cpu")
+    assert system.cameras is ds.cameras and system.width == 32
+    other = Frames(2).cameras
+    assert SLAMSystem(cfg, dataset=ds, cameras=other,
+                      device="cpu").cameras is other
 
 
 def test_run_slam_cli_and_metric_cli(tmp_path):

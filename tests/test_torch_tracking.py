@@ -116,3 +116,82 @@ def test_fuse_model_depth_matches_jax(rng):
     ref = jtracker.fuse_model_depth(*(jnp.asarray(a) for a in (ds[0], ds[1], n, n2)))
     got = tracker.fuse_model_depth(*(torch.as_tensor(a) for a in (ds[0], ds[1], n, n2)))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# ICP alone in loose and free sync: the failure check a frame late
+# ---------------------------------------------------------------------------
+
+FAIL_RUN = dict(use_gt_pose=False, use_orb_backend=False,
+                icp_use_model_depth=False, min_depth=0.1, max_depth=8.0)
+
+
+def _failing_sequence(n=7):
+    """The synthetic room whose frames 3 and 5 lose 85% of their depth:
+    ICP's valid ratio falls below `icp_min_valid_ratio` there."""
+    _, cams = synthetic_sequence(n, width=W, height=H)
+    rng = np.random.default_rng(3)
+    for i in (3, 5):
+        d = cams[i].depth.copy()
+        d[rng.uniform(size=d.shape) < 0.85] = 0.0
+        cams[i] = dataclasses.replace(cams[i], depth=d)
+    return cams
+
+
+def _dumps(root):
+    d = root / "icp_fail"
+    return {p.name: dict(np.load(p)) for p in sorted(d.glob("*.npz"))} \
+        if d.exists() else {}
+
+
+@pytest.mark.parametrize("method", ["loose", "free"])
+def test_icp_only_failures_match_jax(tmp_path, method):
+    """The port's `SLAMSystem.step` with ICP alone in `method` sync against
+    the JAX package's tracker with its device-side pose chain (the path
+    its system takes in every sync mode without the feature backend): the
+    failure count after every frame, the poses, and the failure dumps
+    (each one a frame late, with no relative pose) equal."""
+    from dqo_map_tpu_torch.config import default_config as port_config
+    from dqo_map_tpu_torch.slam.system import SLAMSystem
+    cams = _failing_sequence()
+    jt = jtracker.Tracker(default_config(**FAIL_RUN).tracking, W, H)
+    jt.async_pose = True
+    jt.save_path = str(tmp_path / "jax")
+    system = SLAMSystem(port_config(**dict(
+        FAIL_RUN, type="Synthetic", save_path=str(tmp_path / "port"),
+        use_object=False, capacity=8192, add_capacity=2048,
+        uniform_sample_num=800, gaussian_update_frame=3,
+        gaussian_update_iter=2, memory_length=3,
+        sync_tracker2mapper_method=method, sync_tracker2mapper_frames=3)),
+        cameras=[port_camera(c) for c in cams], device="cpu")
+    pt = system.tracker
+    counts = []
+    for i, cam in enumerate(cams):
+        jc = dataclasses.replace(cam, c2w=cam.c2w.copy())
+        jt.tracking(jc, jt.map_preprocess(jc, i))
+        system.step(system.cameras[i], i)
+        system.mapping.time += 1
+        assert pt.icp_fail_count == jt.icp_fail_count, i
+        counts.append(pt.icp_fail_count)
+        np.testing.assert_allclose(pt.poses_np()[-1],
+                                   np.asarray(jt.pose_es[-1], np.float64),
+                                   atol=1e-3)
+        # only the last pose is a tensor, with its host copy
+        assert all(isinstance(p, np.ndarray) for p in pt.pose_es[:-1]), i
+    np.testing.assert_allclose(
+        np.stack(pt.poses_np()),
+        np.stack([np.asarray(p, np.float64) for p in jt.pose_es]), atol=1e-3)
+    # frame 3's failure is seen one frame late, and the frames around the
+    # two damaged ones fail too
+    assert counts[:4] == [0, 0, 0, 0] and counts[4] == 1 and counts[-1] >= 3
+    jt.flush_icp_failures()
+    pt.flush_icp_failures()
+    want, got = _dumps(tmp_path / "jax"), _dumps(tmp_path / "port")
+    assert list(got) == list(want) and len(want) == counts[-1]
+    assert all(w["pose10"].size == 0 for w in got.values())
+    for name in want:
+        assert set(got[name]) == set(want[name])
+        for k, v in want[name].items():
+            assert got[name][k].shape == v.shape, (name, k)
+            np.testing.assert_allclose(got[name][k], v, atol=1e-4,
+                                       rtol=1e-3, err_msg=f"{name} {k}")

@@ -11,10 +11,11 @@ the object layer on).
   object and frustum overlays: 8-bit images of renders that agree to
   1e-5, so at most one level apart, at under 1% of the pixels.
 - The HTTP routes on a free port, the server in a thread: `/` the page,
-  `/stats` the live Gaussians, `/render` a PNG equal to the view's render
-  (the JAX viewer sends JPEG; the port sends PNG, without PIL).
+  `/stats` the live Gaussians, `/render` a JPEG of the view's render at
+  quality 85, as the JAX viewer sends it: PIL's file, byte for byte.
 """
 
+import io
 import json
 import os
 import subprocess
@@ -25,6 +26,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from dqo_map_tpu_torch.utils.png import read_png
 
@@ -177,11 +179,12 @@ def test_viewer_http_routes(views, tmp_path):
         for query, args in (("yaw=0.3&pitch=-0.2&x=0.1&y=0&z=-0.3&mode=color%2Bobj",
                              (0.3, -0.2, [0.1, 0.0, -0.3], "color+obj")),
                             ("mode=depth", (0.0, 0.0, [0.0, 0.0, 0.0], "depth"))):
-            kind, png = _get(f"{base}/render?{query}")
-            assert kind == "image/png"
-            (tmp_path / "view.png").write_bytes(png)
-            assert np.array_equal(read_png(str(tmp_path / "view.png")),
-                                  view.render(*args))
+            kind, jpg = _get(f"{base}/render?{query}")
+            # the JAX viewer's frame: PIL's JPEG at quality 85, byte for byte
+            assert kind == "image/jpeg"
+            buf = io.BytesIO()
+            Image.fromarray(view.render(*args)).save(buf, "JPEG", quality=85)
+            assert jpg == buf.getvalue()
     finally:
         srv.shutdown()
         srv.server_close()

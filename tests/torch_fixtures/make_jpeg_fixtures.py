@@ -1,8 +1,14 @@
 """Write the JPEG fixtures of `tests/torch_fixtures/jpeg/` with PIL, and
 beside them `hashes.json`: each file's decoded shape and the SHA-256 of
 the array PIL decodes it to. They hold the port's decoder to PIL on a
-machine without PIL (`chip_smoke.py`); `tests/test_torch_jpeg.py`
-re-derives the hashes with PIL.
+machine without PIL (`chip_smoke.py`, which imports `encoder_input` and
+`ENCODER` from here: PIL is imported only to write the files);
+`tests/test_torch_jpeg.py` re-derives the hashes with PIL. Besides baseline files: progressive ones
+(grey, 4:2:0, 4:2:2, 4:4:4, with restart intervals, optimised tables and
+odd sizes, and the synthetic room's first frame at 1200x680), an Adobe
+RGB one (colour transform 0), and the encoder's references: PIL's files
+of `encoder_input` at quality 75 and 85 (4:2:0 and grey), which the
+port's `encode_jpeg` writes byte for byte.
 
     python tests/torch_fixtures/make_jpeg_fixtures.py
 """
@@ -13,7 +19,6 @@ import json
 import os
 
 import numpy as np
-from PIL import Image
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jpeg")
 
@@ -29,14 +34,25 @@ def content(rng, H, W, kind):
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
-def adobe_transform_1(data: bytes) -> bytes:
+def adobe_transform(data: bytes, transform: int = 1) -> bytes:
     """The file with its JFIF APP0 segment replaced by an Adobe APP14 one of
-    colour transform 1 (YCbCr)."""
+    colour `transform` (1 YCbCr, 0 RGB)."""
     assert data[2:4] == b"\xff\xe0"
     app0_end = 4 + int.from_bytes(data[4:6], "big")
-    app14 = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 1])
+    app14 = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, transform])
     seg = b"\xff\xee" + (len(app14) + 2).to_bytes(2, "big") + app14
     return data[:2] + seg + data[app0_end:]
+
+
+def encoder_input(H: int = 45, W: int = 67, grey: bool = False):
+    """The encoder fixtures' image, from integer arithmetic alone so that
+    any machine makes the same one: a gradient with a pseudo-random
+    texture, (H, W, 3) uint8 or its (H, W) green plane."""
+    y, x = np.mgrid[0:H, 0:W].astype(np.int64)
+    tex = ((x * 7919 + y * 104729) ^ (x * y * 31)) % 97
+    img = np.stack([(3 * x + tex) % 256, (5 * y + 2 * tex) % 256,
+                    (x * y + 3 * tex) % 256], -1).astype(np.uint8)
+    return img[..., 1] if grey else img
 
 
 # name: (height, width, content, PIL mode, save options)
@@ -72,24 +88,71 @@ FIXTURES = {
 }
 
 
+# written after FIXTURES, from a generator of their own
+PROGRESSIVE = {
+    "prog_grey_q80_23x41.jpg": (23, 41, "smooth", "L", dict(quality=80)),
+    "prog420_rst2_opt_37x59.jpg": (37, 59, "noise", "RGB",
+                                   dict(quality=70, subsampling=2,
+                                        restart_marker_blocks=2,
+                                        optimize=True)),
+    "prog422_q90_31x47.jpg": (31, 47, "smooth", "RGB",
+                              dict(quality=90, subsampling=1)),
+    "prog444_rstrow_q60_19x29.jpg": (19, 29, "noise", "RGB",
+                                     dict(quality=60, subsampling=0,
+                                          restart_marker_rows=1)),
+    "rgb420_adobe0_33x45.jpg": (33, 45, "smooth", "RGB",
+                                dict(quality=85, subsampling=2)),
+}
+ENCODER = {f"enc_{kind}_q{q}_45x67.jpg": (kind, q) for kind in ("rgb", "grey")
+           for q in (75, 85)}
+ROOM = "room_prog_q75_1200x680.jpg"
+
+
+def _write(path, data):
+    from PIL import Image
+    with open(path, "wb") as f:
+        f.write(data)
+    arr = np.asarray(Image.open(path))
+    return {"shape": list(arr.shape),
+            "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+
+
+def _pil_bytes(img, mode, **opts):
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img, mode).save(buf, "JPEG", **opts)
+    return buf.getvalue()
+
+
 def main():
     os.makedirs(OUT, exist_ok=True)
     rng = np.random.default_rng(2024)
     hashes = {}
     for name, (H, W, kind, mode, opts) in FIXTURES.items():
         img = content(rng, H, W, kind)
-        pil = Image.fromarray(img if mode == "RGB" else img[..., 1], mode)
-        buf = io.BytesIO()
-        pil.save(buf, "JPEG", **opts)
-        data = buf.getvalue()
+        data = _pil_bytes(img if mode == "RGB" else img[..., 1], mode, **opts)
         if "adobe1" in name:
-            data = adobe_transform_1(data)
-        path = os.path.join(OUT, name)
-        with open(path, "wb") as f:
-            f.write(data)
-        arr = np.asarray(Image.open(path))
-        hashes[name] = {"shape": list(arr.shape),
-                        "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+            data = adobe_transform(data, 1)
+        hashes[name] = _write(os.path.join(OUT, name), data)
+    rng = np.random.default_rng(2026)
+    for name, (H, W, kind, mode, opts) in PROGRESSIVE.items():
+        img = content(rng, H, W, kind)
+        img = img if mode == "RGB" else img[..., 1]
+        if "adobe0" in name:
+            data = adobe_transform(_pil_bytes(img, mode, **opts), 0)
+        else:
+            data = _pil_bytes(img, mode, progressive=True, **opts)
+        hashes[name] = _write(os.path.join(OUT, name), data)
+    for name, (kind, q) in ENCODER.items():
+        img = encoder_input(grey=kind == "grey")
+        hashes[name] = _write(os.path.join(OUT, name), _pil_bytes(
+            img, "L" if kind == "grey" else "RGB", quality=q))
+    # the synthetic room's first frame, as the readers would meet it
+    from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
+    _, cams = synthetic_sequence(1, width=1200, height=680)
+    room = np.clip(np.rint(cams[0].image * 255), 0, 255).astype(np.uint8)
+    hashes[ROOM] = _write(os.path.join(OUT, ROOM), _pil_bytes(
+        room, "RGB", quality=75, progressive=True, optimize=True))
     with open(os.path.join(OUT, "hashes.json"), "w") as f:
         json.dump(hashes, f, indent=1, sort_keys=True)
         f.write("\n")
