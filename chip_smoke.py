@@ -47,7 +47,11 @@ tracking in loose sync under the sync debug mode (step 10).
    second half, the final pass must have run len(keyframes) x
    final_global_iter iterations, and its objective summed over every
    keyframe must have fallen from before the pass to after it (both sums
-   under no_grad, their own K1 launches taken out of the counts).
+   under no_grad, their own K1 launches taken out of the counts). The
+   mapper's `counts()` must have waited for the card on no frame after
+   the first: no live read of the map, and no read of the snapshot queued
+   at a frame's end (as the JAX package does) before that copy has
+   landed (`check_count_reads`).
 3. Holds each kernel against its plain version at the main path's shapes
    and times both: K1 on the final map at the last camera, K1's
    background variant and K2's background variant on the last local
@@ -108,12 +112,16 @@ tracking in loose sync under the sync debug mode (step 10).
    sequence, and `per_object_mesh_eval` on the live map.
 8. Path C (`run_path_c`) and the bench phase (`bench_phase`).
 9. Path D, a real dataset's entry path: `read_jpeg` and `read_png`
-   against PIL's hashes of the committed fixtures
-   (`tests/torch_fixtures/jpeg/`: baseline, progressive, Adobe RGB;
+   against PIL's hashes and modes of the committed fixtures
+   (`tests/torch_fixtures/jpeg/`: baseline, progressive, Adobe RGB,
+   arithmetic-coded, progressive with bits unsent, CMYK, YCCK, lossless;
    `tests/torch_fixtures/png/`: palette, 1-, 2- and 4-bit grey, Adam7),
-   `encode_jpeg` against PIL's files of the encoder's input at quality 75
-   and 85 (4:2:0 and grey), byte for byte, with the times of `read_jpeg`
-   on the progressive 1200x680 room and of `encode_jpeg` on it; path A's
+   the palette, 1-bit and CMYK ones also resized by `resize_like_pil`
+   against PIL's resize, `encode_jpeg` against PIL's files of the
+   encoder's input at quality 75 and 85 (4:2:0 and grey), byte for byte,
+   with the times of `read_jpeg` on the 1200x680 room (progressive,
+   arithmetic-coded, progressive ended after its 4th scan) and of
+   `encode_jpeg` on it; path A's
    frames written in Replica's layout under `chiprun_out/replica/`
    (`results/frame%06d.jpg` through `write_jpeg` at quality 95, 4:2:0,
    PIL's encoder's bytes,
@@ -229,6 +237,8 @@ REPLICA_SCALE = 6553.5        # Replica's depth scale (its cam_params.json)
 JPEG_FIXTURES = os.path.join("tests", "torch_fixtures", "jpeg")
 PNG_FIXTURES = os.path.join("tests", "torch_fixtures", "png")
 ROOM_PROGRESSIVE = "room_prog_q75_1200x680.jpg"
+ROOM_ARITH = "room_arith_q75_1200x680.jpg"
+ROOM_SMOOTH = "room_prog_cut4_q75_1200x680.jpg"
 # the no-wait phase: path A without the feature backend, its tracking
 # under the sync debug mode from this frame on
 NOWAIT_DIR = os.path.join("chiprun_out", "run_nowait")
@@ -638,6 +648,8 @@ def run_main_path(args, device, rec):
             torch.cuda.synchronize(device)
             window["t1"] = time.perf_counter()
         info["optimized"] = m.did_optimize
+        info["live_count_reads"] = m.live_count_reads
+        info["waited_count_reads"] = m.waited_count_reads
         info["source"] = backend.source_last
         infos.append(info)
         if prof is not None and i == args.frames - 1:
@@ -688,6 +700,27 @@ def run_main_path(args, device, rec):
                        "final_pass_trace.json")
     return (system, cams, infos, final.info, result, tail, launches, seconds,
             window, host, passes)
+
+
+def check_count_reads(infos, m):
+    """The mapper's `counts()` waits for the card in two ways: a live read
+    of the map, a wait for all the work queued, made only before the
+    first frame (and where the JAX package drops its snapshot: after the
+    final pass's promotion, when no queued copy waits); and a read of the
+    snapshot queued at a frame's end before that copy has landed, a wait
+    for the previous frame's tail. Path A's frames after the first must
+    make neither."""
+    live = [i["live_count_reads"] for i in infos]
+    waited = [i["waited_count_reads"] for i in infos]
+    print(f"mapper counts(): live reads of the map {live[0]} on frame 0, "
+          f"{live[-1] - live[0]} on frames 1-{len(live) - 1}, "
+          f"{m.live_count_reads - live[-1]} in the final pass; snapshot "
+          f"reads that waited for their copy {waited[0]} on frame 0, "
+          f"{waited[-1] - waited[0]} on frames 1-{len(waited) - 1}, "
+          f"{m.waited_count_reads - waited[-1]} in the final pass")
+    if live[-1] != live[0] or waited[-1] != waited[0]:
+        raise RuntimeError(f"the mapper's counts() waited for the card after "
+                           f"the first frame: live {live}, waited {waited}")
 
 
 def keyframe_phase(system, device, rec) -> dict:
@@ -1248,7 +1281,7 @@ def cli_phase(merge_ply: str, card: str, device):
                            f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
     n_poses = len(np.load(traj)[::4])
     pngs = sorted(os.listdir(fly))
-    rgb = read_png(os.path.join(fly, "rgb_00000.png"))
+    rgb = read_png(os.path.join(fly, "rgb_00000.png"))[0]
     print(f"CLI: render_traj on {os.path.basename(merge_ply)}: exit 0 in "
           f"{seconds:.1f} s, {len(pngs)} PNGs; rgb_00000.png {rgb.shape}, "
           f"mean {rgb.mean():.1f}")
@@ -1284,7 +1317,7 @@ def cli_phase(merge_ply: str, card: str, device):
     view_jpg = os.path.join(CLI_DIR, "viewer.jpg")
     with open(view_jpg, "wb") as f:
         f.write(body)
-    img = read_jpeg(view_jpg)
+    img = read_jpeg(view_jpg)[0]
     stats = json.loads(got["/stats"][1])
     print(f"CLI: viewer on {RUN_DIR}: / {got['/'][0]}, /stats {stats}, "
           f"/render {kind} {img.shape} in {1e3 * render_s:.1f} ms, "
@@ -1800,19 +1833,32 @@ def bench_phase(card: str, device) -> dict:
 
 def check_fixtures(folder: str, read, what: str, card: str):
     """`read` on every committed fixture of `folder` against the shape (and
-    where recorded the dtype) and the SHA-256 of the array PIL decodes it
-    to (`hashes.json`, hashed by `make_png_fixtures.py::digest`)."""
-    from make_png_fixtures import digest
+    where recorded the dtype), PIL's mode and the SHA-256 of the array PIL
+    decodes it to (`hashes.json`, hashed by `make_png_fixtures.py::digest`);
+    the palette, 1-bit and CMYK ones also resized by `resize_like_pil` in
+    their mode against the hash of PIL's `Image.resize` (NEAREST for the
+    first two, band by band for CMYK)."""
+    from make_png_fixtures import digest, resize_size
+    from dqo_map_tpu_torch.utils.resize import resize_like_pil
     with open(os.path.join(folder, "hashes.json")) as f:
         want = json.load(f)
-    bad = []
+    bad, resized = [], 0
     for name, w in sorted(want.items()):
-        img = read(os.path.join(folder, name))
-        if list(img.shape) != w["shape"] or digest(img) != w["sha256"] or \
-                str(img.dtype) != w.get("dtype", "uint8"):
+        img, mode = read(os.path.join(folder, name))
+        ok = (list(img.shape) == w["shape"] and digest(img) == w["sha256"]
+              and str(img.dtype) == w.get("dtype", "uint8")
+              and mode == w["mode"])
+        if ok and "resized" in w:
+            small = resize_like_pil(img, resize_size(*img.shape[1::-1]),
+                                    mode)
+            ok = list(small.shape) == w["resized"]["shape"] and \
+                digest(small) == w["resized"]["sha256"]
+            resized += 1
+        if not ok:
             bad.append(name)
     print(f"{what} on the {len(want)} fixtures of {folder}: "
-          f"{len(want) - len(bad)} equal to PIL's arrays [{card}]")
+          f"{len(want) - len(bad)} equal to PIL's arrays and modes, {resized} "
+          f"of them resized as PIL resizes their mode [{card}]")
     if bad or not want:
         raise RuntimeError(f"{what} differs from PIL on {bad}")
 
@@ -1840,7 +1886,7 @@ def check_jpeg_fixtures(card: str):
     print(f"encode_jpeg: PIL's {len(ENCODER)} files byte for byte (quality "
           f"75 and 85, 4:2:0 and grey) [{card}]")
     room = os.path.join(JPEG_FIXTURES, ROOM_PROGRESSIVE)
-    frame = read_jpeg(room)
+    frame = read_jpeg(room)[0]
     read_ms, enc_ms = [], []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1854,6 +1900,19 @@ def check_jpeg_fixtures(card: str):
           f"({os.path.getsize(room) / 1e3:.1f} kB), encode_jpeg "
           f"{float(np.median(enc_ms)):.1f} ms for it at quality 75, 4:2:0 "
           f"(medians of 5, host) [{card}]")
+    for name, kind in ((ROOM_ARITH, "arithmetic-coded"),
+                       (ROOM_SMOOTH, "progressive, ended after its 4th scan "
+                                     "(smoothed)")):
+        path = os.path.join(JPEG_FIXTURES, name)
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            img = read_jpeg(path)[0]
+            ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"read_jpeg {float(np.median(ms)):.2f} ms the "
+              f"{img.shape[1]}x{img.shape[0]} room, {kind} "
+              f"({os.path.getsize(path) / 1e3:.1f} kB; median of 5, host) "
+              f"[{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -2117,6 +2176,7 @@ def main(argv=None) -> int:
     (system, cams, infos, final, result, tail, launches, seconds, window,
      host, passes) = run_main_path(args, device, rec)
     m = system.mapping
+    check_count_reads(infos, m)
     # the map `run()` ended with, which the keyframe path below may change
     from dqo_map_tpu_torch.models.gaussian_map import FIELDS
     final_state = m.state.replace(**{f: getattr(m.state, f).clone()

@@ -29,8 +29,8 @@ from ..utils.resize import resize_like_pil
 from .detections import load_detection_json
 
 
-def _read_frame(path: str) -> np.ndarray:
-    """A PNG or JPEG frame as the uint8 / uint16 array PIL gives for it,
+def _read_frame(path: str):
+    """A PNG or JPEG frame as the array PIL gives for it and PIL's mode,
     told apart by the file's first bytes; `ValueError` naming the file for
     any other format."""
     with open(path, "rb") as f:
@@ -44,16 +44,17 @@ def _read_frame(path: str) -> np.ndarray:
 
 def _load_image(path: str, size=None) -> np.ndarray:
     """A colour image as float32 in [0, 1], resized to (W, H) `size` as PIL
-    resizes (BICUBIC) where that differs from its own."""
-    img = _read_frame(path)
+    resizes its mode (BICUBIC, NEAREST for palette and 1-bit frames) where
+    that differs from its own."""
+    img, mode = _read_frame(path)
     if size is not None:
-        img = resize_like_pil(img, size)
+        img = resize_like_pil(img, size, mode)
     return img.astype(np.float32) / 255.0
 
 
 def _load_depth(path: str, scale: float) -> np.ndarray:
     """A depth image in metres: its samples over `scale`."""
-    return _read_frame(path).astype(np.float32) / scale
+    return _read_frame(path)[0].astype(np.float32) / scale
 
 
 def _relative_poses(poses: List[np.ndarray]) -> List[np.ndarray]:

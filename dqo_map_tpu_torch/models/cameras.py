@@ -122,7 +122,7 @@ class Camera:
         """Adopt a device-side pose: render inputs are then computed on the
         device; host-side consumers call `sync_pose()` first. `host` is its
         queued host copy, whose `numpy()` waits for that copy alone
-        (`slam/tracker.py::HostCopy`)."""
+        (`utils/host_copy.py::HostCopy`)."""
         self.c2w_dev, self.c2w_host = c2w_dev, host
 
     def sync_pose(self) -> None:

@@ -75,6 +75,7 @@ from ..ops.knn import knn2, scales_from_knn
 from ..ops.projection import preprocess
 from ..ops.rasterize import RenderSettings, gaussian_tile_overlap
 from ..utils import image as im
+from ..utils.host_copy import HostCopy
 from ..utils.losses import ssim as ssim_fn
 from ..utils.math3d import (normalize, quat_to_rotmat, rot_compare, slerp,
                             trans_compare)
@@ -847,6 +848,11 @@ class Mapping:
         self.optimize_frames_ids: list = []
         self.did_optimize = False
         self.model_map: Optional[dict] = None
+        # the map counts' once-a-frame mirror (`counts`)
+        self._counts_copy: Optional[HostCopy] = None
+        self._cached_counts: Optional[tuple] = None
+        self.live_count_reads = 0
+        self.waited_count_reads = 0
         self.generator = torch.Generator(device=self.device).manual_seed(2024)
         # the scans' frame schedule, drawn as the JAX package draws it
         self._host_rng = np.random.default_rng(2024)
@@ -901,11 +907,37 @@ class Mapping:
                   file=sys.stderr)
         return d, r["num_entries"], r["clipped_cells"], td
 
-    def counts(self) -> tuple:
-        """(n_unstable, n_stable)."""
+    def _prefetch_counts(self):
+        """Queue the map's (n_unstable, n_stable) into pinned host memory
+        at the end of a frame (`HostCopy`); the next `counts()` reads that
+        snapshot, as the JAX package's `_prefetch_counts` does."""
+        self._counts_copy = HostCopy(self._count_tensor())
+        self._cached_counts = None
+
+    def _count_tensor(self) -> torch.Tensor:
         s = self.state.status
-        u, st = torch.stack([(s == gm.UNSTABLE).sum(), (s == gm.STABLE).sum()]).tolist()
-        return u, st
+        return torch.stack([(s == gm.UNSTABLE).sum(), (s == gm.STABLE).sum()])
+
+    def counts(self) -> tuple:
+        """(n_unstable, n_stable), as the JAX package reads them: once a
+        frame. The first read after a frame's end takes the snapshot that
+        frame queued, and every later read returns it, until the next
+        frame's end. Only where the snapshot is dropped (before the first
+        frame, after the final pass's promotion, after a checkpoint load)
+        and no queued copy waits is the map read live, a wait for all the
+        card's queued work, counted in `live_count_reads`. A snapshot read
+        waits for the queued copy alone; where it had not landed yet, that
+        wait is counted in `waited_count_reads`."""
+        if self._cached_counts is None:
+            copy, self._counts_copy = self._counts_copy, None
+            if copy is None:
+                self.live_count_reads += 1
+                vals = self._count_tensor().tolist()
+            else:
+                self.waited_count_reads += not copy.done()
+                vals = copy.numpy()
+            self._cached_counts = tuple(int(v) for v in vals)
+        return self._cached_counts
 
     def _zero_model_map(self) -> dict:
         """All-transparent model render for the first frame."""
@@ -949,6 +981,8 @@ class Mapping:
         return n_added
 
     def _maybe_compact(self):
+        # the alive count from the mirror (the frame's start), then the
+        # slot watermark, a host integer
         cap = self.state.capacity
         if (sum(self.counts()) + 2 * self.args.add_capacity > cap * 0.9
                 and self.state.count > cap * 0.9):
@@ -1130,6 +1164,7 @@ class Mapping:
         the final pass), in place of one keyframe a step."""
         if select_keyframe_num == -1 or is_end:
             self.state = gaussians_fix(self.state, -1.0)
+            self._cached_counts = None
         if self.counts()[1] == 0 or not self.keyframes:
             return
         ts = self.settings.tile_size
@@ -1209,6 +1244,10 @@ class Mapping:
             frame_map["obj_id_map"] = torch.as_tensor(
                 object_layer.obj_id_image(frame.width, frame.height),
                 device=self.device)
+        # the frame's counts are read as it begins, as the JAX package's
+        # `_update_bucket` reads them: the previous frame's snapshot, or
+        # the empty map's before the first frame
+        self.counts()
         t0 = _now()
         self.gaussians_add(frame, frame_map, frame_id)
         _pr("gaussians_add", t0, self.state.xyz)
@@ -1251,6 +1290,7 @@ class Mapping:
                                           a.unstable_time_window,
                                           unstable=True)
             _pr("fix+error_remove+delete", t0, self.state.xyz)
+            self._prefetch_counts()
         return is_keyframe
 
     def finalize_frame(self, out: dict, frame_map: dict):
@@ -1265,6 +1305,7 @@ class Mapping:
         self.state = gaussians_delete(self.state, self.time,
                                       a.unstable_time_window, unstable=True)
         _pr("finalize(fix+err+del)", t0, self.state.xyz)
+        self._prefetch_counts()
 
     # --------------------------------------------------------------
     def save_model(self, path: Optional[str] = None) -> str:

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..models.cameras import Camera
 from ..utils import image as im
+from ..utils.host_copy import HostCopy
 from ..utils.math3d import eval_ate
 from .icp import IcpConfig, IcpGraph, icp_pyramid
 from .mapper import _now, _pr
@@ -117,37 +118,6 @@ def fuse_model_depth(render_depth, frame_depth, render_normal, frame_normal,
     w = (s_f * s_f) / (s_f * s_f + s_r2)
     fused = torch.where(agree, w * rd + (1.0 - w) * frame_depth, frame_depth)
     return torch.where(frame_depth > 0, fused, rd)
-
-
-class HostCopy:
-    """The host copy of a tensor. On a card: a copy into pinned host
-    memory, queued on the tensor's current stream with an event recorded
-    after it, so that `numpy()` waits for that event alone and not for the
-    work queued later. The first read keeps the values as a numpy array
-    and releases the pinned buffer and the event. Where the pinned buffer
-    or the event cannot be made, it raises. On the CPU it keeps the
-    values, with nothing to overlap."""
-
-    def __init__(self, x: torch.Tensor):
-        x = x.detach()
-        self._event = None
-        if x.is_cuda:
-            self._host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            self._host.copy_(x, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(x.device))
-        else:
-            self._host = x.numpy()
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-            self._host, self._event = self._host.numpy().copy(), None
-        return self._host
-
-    def done(self) -> bool:
-        """Whether the copy has landed, without waiting for it."""
-        return self._event is None or self._event.query()
 
 
 def _upload(a, dev: torch.device) -> torch.Tensor:

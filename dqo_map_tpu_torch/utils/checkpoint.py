@@ -110,6 +110,7 @@ def load_checkpoint(path: str, system) -> int:
                           for c, fm in mp["processed_frames"]]
     m._host_rng.bit_generator.state = mp["host_rng"]
     m.model_map = None
+    m._cached_counts = None
 
     tr, t = host["tracker"], system.tracker
     t.pose_es = [np.asarray(p) for p in tr["pose_es"]]

@@ -8,10 +8,14 @@ images at quality 75, the viewer's frames at 85, smoke data).
 The decoder is built from `csrc/jpeg_decode.cc` at first use with `g++
 -O3 -fPIC -std=c++17 -shared` into `dqo_map_tpu_torch/_build/`, under a
 name keyed by the source's and the flags' hash; a failed build raises.
-It reads 8-bit Huffman JPEG, sequential (SOF0, SOF1) or progressive
-(SOF2), grey, YCbCr or RGB, any integral sampling factors, restart
-intervals; any other file raises `ValueError` naming the file and the
-cause.
+It reads every 8-bit JPEG that PIL reads: grey, YCbCr, RGB, CMYK or
+YCCK (the 4 bands inverted, as PIL's `CMYK` holds them); Huffman- or
+arithmetic-coded; sequential, progressive (smoothed where its scans leave
+bits unsent, as libjpeg smooths it) or lossless; any integral sampling
+factors, restart intervals, corrupt data as libjpeg reads them. A file
+PIL refuses (12-bit, hierarchical, lossless arithmetic, arithmetic data
+past the file's first 64 KiB, truncated, ...) raises `ValueError` naming
+the file and the cause.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ BUILD_DIR = PKG / "_build"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 _LIB = None
+# PIL's mode of a decoded file of 1, 3 or 4 components
+JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}
 
 
 def build_library() -> Path:
@@ -56,10 +62,12 @@ def _load_lib():
     return _LIB
 
 
-def read_jpeg(path) -> np.ndarray:
-    """Decode the JPEG file at `path` into the array PIL gives for it:
-    (H, W) uint8 (grey) or (H, W, 3) uint8 (RGB); `ValueError` naming the
-    file where it is not read."""
+def read_jpeg(path):
+    """Decode the JPEG file at `path` into the array PIL gives for it and
+    PIL's mode: (H, W) uint8 (grey, `L`), (H, W, 3) uint8 (`RGB`) or
+    (H, W, 4) uint8 (`CMYK`, Adobe-inverted as PIL stores it).
+    `ValueError` naming the file where it is not read, as PIL raises on
+    it."""
     with open(path, "rb") as f:
         data = f.read()
     lib = _load_lib()
@@ -72,7 +80,8 @@ def read_jpeg(path) -> np.ndarray:
         img = np.ctypeslib.as_array(out, (H * W * C,)).copy()
     finally:
         lib.jd_free(out)
-    return img.reshape(H, W) if C == 1 else img.reshape(H, W, C)
+    img = img.reshape(H, W) if C == 1 else img.reshape(H, W, C)
+    return img, JPEG_MODES[C]
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ writes its evaluation images without an imaging package."""
 from __future__ import annotations
 
 import os
+import re
 import struct
 import zlib
 
@@ -16,6 +17,13 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 BIT_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
               4: (8, 16), 6: (8, 16)}
+# twice Pillow's Image.MAX_IMAGE_PIXELS: a larger image raises
+# DecompressionBombError in Image.open
+MAX_PIXELS = 2 * 89478485
+# a chunk type as PIL's PngStream accepts one
+CHUNK_TYPE = re.compile(rb"\w\w\w\w")
+# PIL's mode of each colour type at 8 bits
+MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -111,9 +119,10 @@ def _samples(data: bytes, H: int, W: int, ch: int, bits: int):
     return vals.reshape(H, row_bytes * per)[:, :W, None], used
 
 
-def read_png(path: str) -> np.ndarray:
+def read_png(path: str):
     """Decode a PNG into the array that PIL's `np.asarray(Image.open(path))`
-    gives, for every colour type and bit depth the specification allows,
+    gives and PIL's mode (`1`, `L`, `I;16`, `P`, `LA`, `RGB` or `RGBA`),
+    for every colour type and bit depth the specification allows,
     interlaced (Adam7) or not:
     - grey: (H, W) uint8 at 8 bits, uint16 at 16, bool at 1 bit (PIL's
       mode `1`), and at 2 and 4 bits uint8 scaled to 0-255 (x 85, x 17);
@@ -122,38 +131,77 @@ def read_png(path: str) -> np.ndarray:
     - grey-alpha, RGB and RGBA: (H, W, C) uint8. As in PIL, a 16-bit
       colour image keeps each sample's high byte, and 16-bit grey-alpha
       becomes RGBA (the grey in R, G and B).
-    Raises `ValueError` on an unknown colour type, a bit depth its type
-    does not allow, an unknown interlace method and a malformed file."""
+    The chunks are read as PIL reads them: those before the image data
+    whole and of a good CRC, the IDAT chunks' CRCs unread, nothing after
+    them; any interlace method but 0 is Adam7, and data past the image's
+    rows are not read. Raises `ValueError` where PIL raises: on an unknown
+    colour type or filter method, a bit depth its type does not allow, a
+    bad CRC, too little image data and a malformed file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos + 8 <= len(data):
+    header, idat = None, []
+    # the chunks before the image data, as PIL's PngStream reads them:
+    # each of a 4-letter type, whole, its CRC checked
+    pos, kind, length = 8, None, 0
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError(f"{path}: truncated PNG (no image data)")
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        if len(body) != length:
-            raise ValueError(f"{path}: truncated {kind!r} chunk")
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
+        if not CHUNK_TYPE.fullmatch(kind):
+            raise ValueError(f"{path}: broken PNG chunk type {kind!r}")
+        if kind in (b"IDAT", b"IEND"):
             break
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError(f"{path}: truncated {kind!r} chunk")
+        if struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
+            raise ValueError(f"{path}: bad CRC of the {kind!r} chunk")
+        if kind == b"IHDR":
+            if length < 13:
+                raise ValueError(f"{path}: truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body[:13])
         pos += 12 + length
+    # the image data: the IDAT chunks in a row, their CRCs not read (as
+    # PIL reads them); nothing after them is read
+    while kind == b"IDAT":
+        idat.append(data[pos + 8:pos + 8 + length])
+        pos += 12 + length
+        if pos + 8 > len(data):
+            break
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or IDAT chunk")
-    W, H, bits, colour_type, _, _, interlace = header
+    W, H, bits, colour_type, _, filter_method, interlace = header
+    if W * H > MAX_PIXELS:
+        raise ValueError(f"{path}: {W}x{H} pixels, past PIL's "
+                         f"decompression-bomb limit of {MAX_PIXELS}")
     if colour_type not in BIT_DEPTHS:
         raise ValueError(f"{path}: unknown colour type {colour_type}")
     if bits not in BIT_DEPTHS[colour_type]:
         raise ValueError(f"{path}: {bits} bits for colour type "
                          f"{colour_type}, which allows "
                          f"{BIT_DEPTHS[colour_type]}")
-    if interlace not in (0, 1):
-        raise ValueError(f"{path}: unknown interlace method {interlace}")
+    if filter_method:
+        raise ValueError(f"{path}: unknown filter method {filter_method}")
     ch = CHANNELS[colour_type]
-    raw = zlib.decompress(b"".join(idat))
+    # PIL takes any interlace method but 0 as Adam7, and inflates no more
+    # than the image's rows need
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    need = 0
+    for y0, x0, dy, dx in passes:
+        ph, pw = -(-max(H - y0, 0) // dy), -(-max(W - x0, 0) // dx)
+        if ph and pw:
+            need += ph * (-(-pw * ch * bits // 8) + 1)
+    try:
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    except zlib.error as e:
+        raise ValueError(f"{path}: broken PNG data ({e})") from None
+    if len(raw) < need:
+        raise ValueError(f"{path}: truncated PNG data ({len(raw)} of "
+                         f"{need} bytes)")
     if interlace:
         img = np.zeros((H, W, ch), np.uint16 if bits == 16 else np.uint8)
         pos = 0
@@ -162,22 +210,22 @@ def read_png(path: str) -> np.ndarray:
             part, used = _samples(raw[pos:], ph, pw, ch, bits)
             img[y0::dy, x0::dx] = part
             pos += used
-        if pos != len(raw):
-            raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, "
-                             f"wanted {pos}")
     else:
-        img, used = _samples(raw, H, W, ch, bits)
-        if used != len(raw):
-            raise ValueError(f"PNG data holds {len(raw)} bytes, wanted "
-                             f"{used}")
+        img, _ = _samples(raw, H, W, ch, bits)
+    mode = MODES[colour_type]
     if bits < 8 and colour_type == 0:
         img = img[..., 0]
-        return img.astype(bool) if bits == 1 else img * (255 // (
-            (1 << bits) - 1))
-    if bits == 16:
+        if bits == 1:
+            img, mode = img.astype(bool), "1"
+        else:
+            img = img * (255 // ((1 << bits) - 1))
+    elif bits == 16:
         if colour_type == 0:
-            return img[..., 0]
-        img = (img >> 8).astype(np.uint8)
-        if colour_type == 4:
-            img = img[..., [0, 0, 0, 1]]
-    return img[..., 0] if ch == 1 else img
+            img, mode = img[..., 0], "I;16"
+        else:
+            img = (img >> 8).astype(np.uint8)
+            if colour_type == 4:
+                img, mode = img[..., [0, 0, 0, 1]], "RGBA"
+    elif ch == 1:
+        img = img[..., 0]
+    return img, mode

@@ -1,6 +1,8 @@
-"""`resize_like_pil`: PIL's `Image.resize(size)` at its default resample,
-BICUBIC, on the host in numpy, bit for bit, for PIL's modes `L`, `RGB`,
-`LA`, `RGBA` and `I;16`. The arithmetic is Pillow's
+"""`resize_like_pil`: PIL's `Image.resize(size)` on the host in numpy, bit
+for bit: at its default resample, BICUBIC, for PIL's modes `L`, `RGB`,
+`LA`, `RGBA`, `CMYK` and `I;16`, and NEAREST, which Pillow takes for `P`
+and `1` whatever the resample asked (`Image.resize`; `Geometry.c`'s
+`ImagingScaleAffine`). The BICUBIC arithmetic is Pillow's
 `libImaging/Resample.c`: each axis's coefficients in double
 (`precompute_coeffs`, the cubic with a = -0.5 over a support widened by
 the ratio when shrinking, normalised per output pixel); for 8-bit bands
@@ -9,7 +11,7 @@ clipped to uint8; for `I;16` summed in double and rounded; the horizontal
 pass first, then the vertical; an axis that keeps its size is not
 resampled. `LA` and `RGBA` are resampled premultiplied by alpha, as
 Pillow's `Image.resize` converts them to `La` / `RGBa` and back
-(`libImaging/Convert.c`)."""
+(`libImaging/Convert.c`); `CMYK` band by band as it is."""
 
 from __future__ import annotations
 
@@ -133,29 +135,79 @@ def _unpremultiply(img: np.ndarray) -> np.ndarray:
                           axis=-1).astype(np.uint8)
 
 
-def resize_like_pil(img: np.ndarray, size) -> np.ndarray:
-    """`np.asarray(Image.fromarray(img).resize(size))` at size = (width,
-    height), for the arrays of PIL's modes `L` ((H, W) uint8), `I;16`
-    ((H, W) uint16), `LA` ((H, W, 2) uint8), `RGB` ((H, W, 3) uint8) and
-    `RGBA` ((H, W, 4) uint8). As in Pillow, an image at its own size comes
-    back as a copy, whatever its type. `LA` and `RGBA` are resampled with
-    their colour premultiplied by alpha (Pillow's `La` / `RGBa`), each
-    band as `L`; `I;16` through the 16-bit path. Raises `ValueError` on
-    any other image."""
+def _nearest(img: np.ndarray, W: int, H: int) -> np.ndarray:
+    """`ImagingScaleAffine`: output pixel x samples input column
+    floor(x0 + x * scale) with x0 = scale / 2, the positions summed in
+    double one step at a time as the C loop does, and likewise the rows;
+    a position past the image leaves its pixel 0."""
+    def taps(n_in, n_out):
+        a = n_in / n_out
+        pos = np.add.accumulate(np.concatenate([[a * 0.5],
+                                                np.full(n_out - 1, a)]))
+        idx = pos.astype(np.int64)
+        return np.minimum(idx, n_in - 1), idx < n_in
+    cols, col_ok = taps(img.shape[1], W)
+    rows, row_ok = taps(img.shape[0], H)
+    out = img[rows][:, cols]
+    out[~row_ok] = 0
+    out[:, ~col_ok] = 0
+    return out
+
+
+# the arrays of PIL's modes: (ndim, channels, dtype)
+MODES = {"1": (2, 1, bool), "L": (2, 1, np.uint8), "P": (2, 1, np.uint8),
+         "I;16": (2, 1, np.uint16), "LA": (3, 2, np.uint8),
+         "RGB": (3, 3, np.uint8), "RGBA": (3, 4, np.uint8),
+         "CMYK": (3, 4, np.uint8)}
+
+
+def _mode_of(img: np.ndarray) -> str:
+    """The mode an array without one is read as: (H, W) uint8 `L`, uint16
+    `I;16`; (H, W, 2 / 3 / 4) uint8 `LA`, `RGB`, `RGBA`."""
+    for mode in ("L", "I;16", "LA", "RGB", "RGBA"):
+        ndim, ch, dt = MODES[mode]
+        if img.ndim == ndim and img.dtype == dt and (
+                ndim == 2 or img.shape[2] == ch):
+            return mode
+    raise ValueError(f"resizing reads (H, W) uint8 or uint16 and "
+                     f"(H, W, 2 / 3 / 4) uint8 images (PIL's L, I;16, "
+                     f"LA, RGB and RGBA) without a mode, got {img.dtype} "
+                     f"{img.shape}")
+
+
+def resize_like_pil(img: np.ndarray, size, mode: str = None) -> np.ndarray:
+    """`np.asarray(Image.fromarray(img, mode).resize(size))` at size =
+    (width, height), for the array of an image of PIL's `mode`: `1`
+    ((H, W) bool), `L` or `P` ((H, W) uint8), `I;16` ((H, W) uint16),
+    `LA` ((H, W, 2) uint8), `RGB` ((H, W, 3) uint8), `RGBA` or `CMYK`
+    ((H, W, 4) uint8). Without a mode the array is read as `L`, `I;16`,
+    `LA`, `RGB` or `RGBA` by its shape and type. As in Pillow, an image at
+    its own size comes back as a copy, whatever its type; `P` and `1` are
+    resized NEAREST; `LA` and `RGBA` resampled BICUBIC with their colour
+    premultiplied by alpha (Pillow's `La` / `RGBa`), each band as `L`;
+    `CMYK` band by band; `I;16` through the 16-bit path. Raises
+    `ValueError` on an unknown mode or an array that is not its mode's."""
     img = np.asarray(img)
     W, H = (int(s) for s in size)
     if W < 1 or H < 1:
         raise ValueError(f"size {size} is not positive")
     if img.ndim >= 2 and img.shape[:2] == (H, W):
         return img.copy()
-    if img.dtype == np.uint16 and img.ndim == 2:
+    if mode is None:
+        mode = _mode_of(img)
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {sorted(MODES)}")
+    ndim, ch, dt = MODES[mode]
+    if img.ndim != ndim or img.dtype != dt or (ndim == 3 and
+                                               img.shape[2] != ch):
+        shape = "(H, W)" if ndim == 2 else f"(H, W, {ch})"
+        raise ValueError(f"a {mode} image is {shape} {np.dtype(dt).name}, "
+                         f"got {img.dtype} {img.shape}")
+    if mode in ("1", "P"):
+        return _nearest(img, W, H)
+    if mode == "I;16":
         return _resize_planes(img, W, H, _resample16)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
-            img.ndim == 3 and img.shape[2] not in (2, 3, 4)):
-        raise ValueError(f"resizing reads (H, W) uint8 or uint16 and "
-                         f"(H, W, 2 / 3 / 4) uint8 images (PIL's L, I;16, "
-                         f"LA, RGB and RGBA), got {img.dtype} {img.shape}")
-    if img.ndim == 3 and img.shape[2] in (2, 4):
+    if mode in ("LA", "RGBA"):
         return _unpremultiply(_resize_planes(_premultiply(img), W, H,
                                              _pass8))
     return _resize_planes(img, W, H, _pass8)

@@ -8,16 +8,18 @@ all, against the port's counterparts on the CPU:
   64x48, off the optimize cadence, over the map of frame 0 promoted
   whole, every new Gaussian promoted at once (a confidence threshold
   below 0) so that stable ones meet the error-remove step, the port fed
-  the JAX package's draws. (The JAX package gates the error-remove on
-  the stable count cached at the frame's start, so on the frame of the
-  first promotion it skips it; the port reads the count live. Frame 0 is
-  therefore taken through both without the tail, then promoted; a case
-  of its own holds that frame's single difference.) Pose to 1e-4,
+  the JAX package's draws. (Both gate the error-remove on the stable
+  count read as the frame began, so on the frame of the first promotion
+  neither runs it; frame 0 is taken through both without the tail, then
+  promoted, and a case of its own holds the first promotion.) Pose to 1e-4,
   counts and statuses exact, positions, SH, rotations and log-scales to
   1e-5 and the other fields exactly, but at a few slots: the renders are ill-conditioned in
   the map (as in `test_torch_slice.py`), so one new Gaussian's initial
   opacity and error count may differ; at most 2 slots, or 0.2% of the
   alive ones, per field and frame (1 of 1,062 at frame 2 here).
+- `Mapping.counts()`, the map counts read once a frame (the previous
+  frame's snapshot), call by call over the first promotion, a compaction
+  and MODE=0's stable delete.
 - `ops/knn.py::update_geometry_scales` to 1e-5 on points whose
   neighbours are far from ties (JAX ranks them approximately).
 - `Camera.resized` (nearest) exactly, `utils/math3d.py`'s
@@ -47,6 +49,7 @@ from test_torch_rasterize import port_camera
 from test_torch_slice import _counts, _jax_draws
 
 W, H, FRAMES = 64, 48, 3
+COUNT_FRAMES = 4
 SETTINGS = dict(
     type="Synthetic", use_gt_pose=False, use_orb_backend=False,
     use_object=False, capacity=8192, add_capacity=2048,
@@ -64,30 +67,43 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _systems(tmp_path):
+def _systems(tmp_path, **overrides):
     """Both systems on the synthetic room, off the optimize cadence
-    (frames 1-3 of a 6-frame cycle), and a function that takes frame `i`
-    through both, the port fed the JAX package's draws."""
-    _, cams = synthetic_sequence(FRAMES, width=W, height=H)
-    jsys = JSLAMSystem(jax_default_config(save_path=str(tmp_path), **SETTINGS),
+    (frames 1-5 of a 6-frame cycle), and a function that takes frame `i`
+    through both, the port fed the JAX package's draws: through `mapping`
+    (its tail deferred or not), or with `step` through `SLAMSystem.step`
+    with the object layer `objects` and a detection on the frame."""
+    settings = {**SETTINGS, **overrides}
+    _, cams = synthetic_sequence(settings.pop("frames", FRAMES), width=W,
+                                 height=H)
+    jsys = JSLAMSystem(jax_default_config(save_path=str(tmp_path), **settings),
                        cameras=[dataclasses.replace(c, c2w=c.c2w.copy())
                                 for c in cams])
-    psys = SLAMSystem(default_config(save_path=str(tmp_path), **SETTINGS),
+    psys = SLAMSystem(default_config(save_path=str(tmp_path), **settings),
                       cameras=[port_camera(c) for c in cams], device="cpu")
     jt, jm, pt, pm = jsys.tracker, jsys.mapping, psys.tracker, psys.mapping
     jm.time = pm.time = 1
 
-    def frame(i, defer):
+    def frame(i, defer, objects=None, step=False):
         f, p = jsys.cameras[i], psys.cameras[i]
         draws = _jax_draws(jm.key, W * H)
-        jfm = jt.map_preprocess(f, i)
-        jt.tracking(f, jfm)
-        jm.mapping(f, jfm, i, None, defer_finalize=defer)
+        if objects is not None:
+            f.detections = p.detections = [{}]
+        if step:
+            jsys.object_layer = psys.object_layer = objects
+            jsys.step(f, i)
+        else:
+            jfm = jt.map_preprocess(f, i)
+            jt.tracking(f, jfm)
+            jm.mapping(f, jfm, i, objects, defer_finalize=defer)
         jm.time += 1
         pm._uniform_draws = lambda n, d=draws: d
-        pfm = pt.map_preprocess(p, i)
-        pt.tracking(p, pfm)
-        pm.mapping(p, pfm, i, None, defer_finalize=defer)
+        if step:
+            psys.step(p, i)
+        else:
+            pfm = pt.map_preprocess(p, i)
+            pt.tracking(p, pfm)
+            pm.mapping(p, pfm, i, objects, defer_finalize=defer)
         pm.time += 1
 
     return jsys, psys, frame
@@ -125,6 +141,7 @@ def test_mapping_without_deferred_finalize_matches_jax(tmp_path):
     jm.state = jmapper.gaussians_fix(jm.state, -1.0)
     jm._prefetch_counts()
     pm.state = mapper.gaussians_fix(pm.state, -1.0)
+    pm._prefetch_counts()
     jmapper.profile_enable(True)
     mapper.profile_enable(True)
     jmapper.stage_times(reset=True)
@@ -145,36 +162,85 @@ def test_mapping_without_deferred_finalize_matches_jax(tmp_path):
     assert _counts(pst["status"])[1] > 0
 
 
-def test_first_promotion_differs_from_jax_by_the_error_remove(tmp_path,
-                                                              monkeypatch):
-    """The frame whose tail promotes the first stable Gaussians. The JAX
-    package gates the error-remove on the stable count cached at the
-    frame's start (0) and skips it; the port reads the count live and
-    runs it (ROADMAP, mismatches that are not faults). With the port's
-    step recorded and its result set aside, both tails agree; the step
-    the port ran changes the map."""
+def test_first_promotion_matches_jax(tmp_path, monkeypatch):
+    """The frame whose tail promotes the first stable Gaussians. Both
+    packages gate the error-remove on the stable count read as the frame
+    began (0, the map counts' once-a-frame mirror), so neither runs it,
+    and the maps agree."""
     jsys, psys, frame = _systems(tmp_path)
     frame(0, True)
-    jran, pran = [], []
-    jstep, pstep = jmapper.error_remove_step, mapper.error_remove_step
-
-    def jrecord(state, *a, **kw):
-        jran.append(True)
-        return jstep(state, *a, **kw)
-
-    def precord(state, *a, **kw):
-        pran.append((map_state_to_numpy(state),
-                     map_state_to_numpy(pstep(state, *a, **kw))))
-        return state
-
-    monkeypatch.setattr(jmapper, "error_remove_step", jrecord)
-    monkeypatch.setattr(mapper, "error_remove_step", precord)
+    ran = []
+    for mod in (jmapper, mapper):
+        def record(state, *a, _step=mod.error_remove_step, _mod=mod, **kw):
+            ran.append(_mod.__name__)
+            return _step(state, *a, **kw)
+        monkeypatch.setattr(mod, "error_remove_step", record)
     frame(1, False)
-    assert jran == [] and len(pran) == 1
+    assert ran == []
     pst = _maps_agree(jsys, psys, 1)
     assert _counts(pst["status"])[1] > 0
-    before, after = pran[0]
-    assert any(not np.array_equal(before[k], after[k]) for k in before)
+
+
+class _NoObjects:
+    """An object layer in MODE=0 that finds no object: the frame's tail
+    still deletes the oversized stable Gaussians after its refinement."""
+
+    def process_frame(self, *args):
+        pass
+
+    def obj_id_image(self, W, H):
+        return np.full((H, W), -1, np.int32)
+
+    def optimize_objects_render(self, *args):
+        pass
+
+
+def test_counts_match_jax_call_by_call(tmp_path, monkeypatch):
+    """Every `counts()` call of both packages over frames 0-2 of the room
+    through `SLAMSystem.step` (the tail deferred to `finalize_frame`) and
+    frame 3 with the tail inside `mapping`: the first promotion, MODE=0's
+    stable delete before every tail, and at frame 3 a compaction of the
+    slots (capacity 560) and its growth. The values agree call by call,
+    and the port reads the map live only before its first frame. The
+    poses are the ground truth's, so that densification sees the same
+    renders in both packages (ROADMAP: the renders are ill-conditioned,
+    and ICP's last bits move a few new Gaussians at this size)."""
+    jsys, psys, frame = _systems(tmp_path, capacity=560, add_capacity=512,
+                                 object_mode=0, use_gt_pose=True,
+                                 frames=COUNT_FRAMES)
+    jm, pm = jsys.mapping, psys.mapping
+    calls = {"jax": [], "port": []}
+    for m, tag in ((jm, "jax"), (pm, "port")):
+        def record(_m=m, _read=m.counts, _tag=tag):
+            calls[_tag].append(tuple(_read()))
+            return calls[_tag][-1]
+        monkeypatch.setattr(m, "counts", record)
+
+    def start(*a, _mapping=jm.mapping, **kw):
+        # JAX reads the frame's counts as `mapping` begins, in
+        # `_update_bucket`; the port's first `counts()` call is that read
+        calls["jax"].append(tuple(jm._counts3()[:2]))
+        return _mapping(*a, **kw)
+    monkeypatch.setattr(jm, "mapping", start)
+    compacted = []
+    for mod in (jmapper.gm, mapper.gm):
+        def compact(state, _c=mod.compact):
+            compacted.append(True)
+            return _c(state)
+        monkeypatch.setattr(mod, "compact", compact)
+    deletes = []
+    for mod in (jmapper, mapper):
+        def delete(state, *a, _d=mod.gaussians_delete, **kw):
+            deletes.append(kw.get("unstable"))
+            return _d(state, *a, **kw)
+        monkeypatch.setattr(mod, "gaussians_delete", delete)
+    for i in range(COUNT_FRAMES):
+        last = i == COUNT_FRAMES - 1
+        frame(i, False, _NoObjects(), step=not last)
+        assert calls["jax"] == calls["port"], i
+    assert pm.live_count_reads == 1
+    assert len(compacted) == 2 and pm.state.capacity == 1120
+    assert deletes.count(False) == 2 * COUNT_FRAMES
 
 
 def test_update_geometry_scales_matches_jax():

@@ -10,8 +10,11 @@ CPU.
   `read_png`. Palette files at 1, 2, 4 and 8 bits (the indices, with and
   without tRNS), 1-bit grey (bool), 2- and 4-bit grey (scaled), and
   Adam7 interlacing of every colour type and bit depth; the committed
-  PNG fixtures' hashes. A bit depth a colour type does not allow, an
-  unknown colour type or interlace method raise. The PNGs are written
+  PNG fixtures' hashes, modes and (palette, 1-bit) NEAREST resizes. A
+  bit depth a colour type does not allow or an unknown colour type
+  raises, as in PIL; damaged files are read, or refused, as PIL reads or
+  refuses them (CRCs before the image data, the zlib stream inflated no
+  further than the rows). The PNGs are written
   here by small encoders that apply the filters the PNG specification
   defines (`torch_fixtures/make_png_fixtures.py::png_bytes`).
 - The readers decode PNG and JPEG frames and resize them without PIL
@@ -23,6 +26,7 @@ CPU.
   file that does not decode giving None and `IOError`.
 """
 
+import io
 import json
 import struct
 import sys
@@ -37,7 +41,8 @@ from dqo_map_tpu.data import native_loader as jloader
 from dqo_map_tpu_torch.data import native_loader as loader
 from dqo_map_tpu_torch.data import readers
 from dqo_map_tpu_torch.utils.png import read_png
-from torch_fixtures.make_png_fixtures import digest, png_bytes
+from dqo_map_tpu_torch.utils.resize import resize_like_pil
+from torch_fixtures.make_png_fixtures import digest, png_bytes, resize_size
 
 CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
@@ -102,7 +107,7 @@ def test_read_png_matches_pil(tmp_path, bits, colour_type, kinds):
     img = _image(rng, bits, colour_type)
     path = tmp_path / "t.png"
     write_test_png(path, img, bits, colour_type, kinds)
-    got, ref = read_png(str(path)), np.asarray(Image.open(path))
+    got, ref = read_png(str(path))[0], np.asarray(Image.open(path))
     assert got.dtype == ref.dtype and got.shape == ref.shape
     assert np.array_equal(got, ref)
     if bits == 8 or colour_type == 0:
@@ -126,9 +131,14 @@ REFUSED_PNG = {
                   "4 bits for colour type 2"),
     "unknown_type": (lambda d: _header_swapped(d, colour_type=5),
                      "unknown colour type 5"),
+    # any method but 0 is Adam7 to PIL: the plain rows fall short
     "interlace_method": (lambda d: _header_swapped(d, interlace=2),
-                         "unknown interlace method 2"),
+                         "truncated PNG data"),
     "not_png": (lambda d: b"not a png", "not a PNG"),
+    # 20000 x 20000: past twice Image.MAX_IMAGE_PIXELS
+    "decompression_bomb": (lambda d: d[:8] + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", 20000, 20000, 8, 2, 0, 0, 0)) + d[33:],
+        "decompression-bomb"),
 }
 
 
@@ -138,6 +148,8 @@ def test_read_png_refuses_what_it_does_not_read(tmp_path, kind):
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
     make, why = REFUSED_PNG[kind]
     path.write_bytes(make(path.read_bytes()))
+    with pytest.raises((OSError, SyntaxError, Image.DecompressionBombError)):
+        np.asarray(Image.open(path))
     with pytest.raises(ValueError, match=why):
         read_png(str(path))
 
@@ -165,7 +177,7 @@ def test_read_png_palette_and_low_bits_match_pil(tmp_path, ct_bits, trns):
                     np.uint8)) if ct == 3 else int(img[0, 0]).to_bytes(2, "big"))
             path.write_bytes(png_bytes(img, bits, ct, interlace,
                                        (0, 1, 2, 3, 4), pal, t))
-            got, ref = read_png(str(path)), np.asarray(Image.open(path))
+            got, ref = read_png(str(path))[0], np.asarray(Image.open(path))
             assert got.dtype == ref.dtype and got.shape == ref.shape
             assert np.array_equal(got, ref), (H, W, interlace)
 
@@ -182,7 +194,7 @@ def test_read_png_adam7_matches_pil(tmp_path, bits, colour_type):
         img = _image(rng, bits, colour_type, H, W)
         path.write_bytes(png_bytes(img, bits, colour_type, True,
                                    (0, 1, 2, 3, 4)))
-        got, ref = read_png(str(path)), np.asarray(Image.open(path))
+        got, ref = read_png(str(path))[0], np.asarray(Image.open(path))
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert np.array_equal(got, ref), (H, W)
 
@@ -200,8 +212,15 @@ def test_png_fixture_hashes_are_pils(name):
     want = PNG_HASHES[name]
     assert list(ref.shape) == want["shape"] and str(ref.dtype) == want["dtype"]
     assert digest(ref) == want["sha256"]
-    got = read_png(str(path))
+    got, mode = read_png(str(path))
     assert got.dtype == ref.dtype and np.array_equal(got, ref)
+    assert mode == Image.open(path).mode == want["mode"]
+    assert ("resized" in want) == (mode in ("P", "1"))
+    if "resized" in want:                  # NEAREST, as Pillow resizes
+        size = resize_size(*got.shape[::-1])
+        small = np.asarray(Image.open(path).resize(size))
+        assert digest(small) == want["resized"]["sha256"]
+        assert np.array_equal(resize_like_pil(got, size, mode), small)
 
 
 def test_png_fixtures_are_small():
@@ -325,3 +344,70 @@ def test_native_depth_loader_matches_jax(depth_pngs):
     with pytest.raises(ValueError, match="closed"):
         pl.get(0)
     jl.close()
+
+
+def _png_image(rng, mode):
+    shape = {"RGB": (20, 30, 3), "LA": (20, 30, 2)}.get(mode, (20, 30))
+    top, dt = (65536, np.uint16) if mode == "I;16" else (256, np.uint8)
+    arr = rng.integers(0, 16 if mode == "P" else top, shape).astype(dt)
+    im = Image.fromarray(arr, mode if mode in ("P", "LA") else None)
+    if mode == "P":
+        im.putpalette(list(range(48)))
+    return im
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L", "P", "I;16", "LA"])
+def test_read_damaged_png_matches_pil(tmp_path, mode):
+    """PNGs damaged at random, read as PIL reads them: the chunks before
+    the image data checked (type, length, CRC), the IDAT chunks' CRCs
+    unread, no more of the zlib stream inflated than the rows need (a
+    broken checksum or extra data past them unread), nothing after the
+    IDAT chunks read. Where PIL decodes a file the port gives its array,
+    where PIL refuses it the port raises."""
+    rng = np.random.default_rng(len(mode))
+    buf = io.BytesIO()
+    _png_image(rng, mode).save(buf, "PNG")
+    data = buf.getvalue()
+    at = data.index(b"IDAT") - 4
+    n = struct.unpack(">I", data[at:at + 4])[0]
+    z, head, tail = data[at + 8:at + 8 + n], data[:at], data[at + 12 + n:]
+    path = tmp_path / "d.png"
+    outcomes = set()
+    for trial in range(48):
+        zz, kind = bytearray(z), trial % 8
+        if kind == 0:
+            zz[-1 - int(rng.integers(0, 4))] ^= 0xFF        # the checksum
+        elif kind == 1:
+            zz[int(rng.integers(2, len(zz)))] ^= 1 << int(rng.integers(0, 8))
+        elif kind == 2:
+            zz = zz[:int(rng.integers(1, len(zz)))]
+        elif kind == 3:
+            zz += bytes(rng.integers(0, 256, 5).astype(np.uint8))
+        cut = int(rng.integers(1, len(zz)))
+        body = head + _chunk(b"IDAT", bytes(zz[:cut])) + \
+            _chunk(b"IDAT", bytes(zz[cut:]))
+        if kind == 4:
+            body += tail[:int(rng.integers(0, len(tail)))]
+        elif kind == 5:                      # a bad CRC after the data
+            body += _chunk(b"tEXt", b"a\0b")[:-1] + b"x" + tail
+        elif kind == 6:                      # and before it
+            body = body[:8] + _chunk(b"tEXt", b"a\0b")[:-1] + b"x" + \
+                body[8:] + tail
+        elif kind == 7:                      # a byte changed anywhere
+            body = bytearray(body + tail)
+            body[int(rng.integers(8, len(body)))] = int(rng.integers(0, 256))
+            body = bytes(body)
+        else:
+            body += tail
+        path.write_bytes(body)
+        try:
+            ref = np.asarray(Image.open(path))
+        except (OSError, SyntaxError, ValueError):
+            with pytest.raises(ValueError, match="d.png: "):
+                read_png(str(path))
+            outcomes.add("refused")
+            continue
+        got = read_png(str(path))[0]
+        assert got.dtype == ref.dtype and np.array_equal(got, ref), trial
+        outcomes.add("read")
+    assert outcomes == {"read", "refused"}

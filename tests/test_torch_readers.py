@@ -288,3 +288,55 @@ def test_readers_refuse_other_formats(tmp_path):
         readers._load_image(str(bad))
     with pytest.raises(ValueError, match="frame.gif"):
         readers._load_depth(str(bad), 1000.0)
+
+
+def _kind_file(path, kind, rng):
+    """A 24x36 frame of each image kind whose reading or resizing PIL does
+    its own way: palette and 1-bit PNGs (NEAREST), CMYK and YCCK JPEGs
+    (4 inverted bands, resized band by band), and the JPEG codings the
+    decoder reads besides Huffman: arithmetic, progressive with bits left
+    unsent (smoothed), lossless."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__),
+                                    "torch_fixtures"))
+    import jpeg_writers as jw
+    y, x = np.mgrid[0:24, 0:36]
+    rgb = np.stack([(7 * x + 3 * y) % 256, (5 * y) % 256,
+                    rng.integers(0, 256, (24, 36))], -1).astype(np.uint8)
+    if kind == "palette":
+        im = Image.fromarray(rng.integers(0, 16, (24, 36)).astype(np.uint8),
+                             "P")
+        im.putpalette(list(rng.integers(0, 256, 48)))
+        im.save(path)
+    elif kind == "bilevel":
+        Image.fromarray(rng.integers(0, 2, (24, 36)).astype(bool)).save(path)
+    elif kind == "cmyk":
+        Image.fromarray(np.concatenate([rgb, rgb[..., :1]], -1), "CMYK").save(
+            path, quality=85)
+    else:
+        cmyk = np.concatenate([rgb, 255 - rgb[..., 1:2]], -1)
+        data = {
+            "ycck": lambda: jw.write_arithmetic(jw.Frame(cmyk, "YCCK", 80)),
+            "arithmetic": lambda: jw.write_arithmetic(jw.Frame(rgb), [
+                ((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 9, 0, 0),
+                ((0, 1, 2), 0, 0, 1, 0)]),
+            "unrefined": lambda: jw.write_progressive_huffman(
+                jw.Frame(rgb, "YCbCr", 60), [((0, 1, 2), 0, 0, 0, 0),
+                                             ((0,), 1, 5, 0, 1)]),
+            "lossless": lambda: jw.write_lossless(rgb, 7, 1, "RGB"),
+        }[kind]()
+        path.write_bytes(data)
+
+
+@pytest.mark.parametrize("kind", ["palette", "bilevel", "cmyk", "ycck",
+                                  "arithmetic", "unrefined", "lossless"])
+def test_load_image_reads_each_kind_as_jax(tmp_path, monkeypatch, kind):
+    path = tmp_path / ("f.png" if kind in ("palette", "bilevel") else "f.jpg")
+    _kind_file(path, kind, np.random.default_rng(len(kind)))
+    sizes = (None, (36, 24), (20, 13), (50, 31))
+    want = [jreaders._load_image(str(path), s) for s in sizes]
+    monkeypatch.setitem(sys.modules, "PIL", None)            # no PIL
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    for s, w in zip(sizes, want):
+        got = readers._load_image(str(path), s)
+        assert got.dtype == w.dtype and got.shape == w.shape, s
+        assert np.array_equal(got, w), s

@@ -108,11 +108,11 @@ def test_render_traj_cli_matches_render_state(saved_run, tmp_path):
                         "instance": render_instance(state, ci, settings)}
             for k, v in want.items():
                 img = np.clip(v.numpy() * 255, 0, 255).astype(np.uint8)
-                got = read_png(str(out / f"{k}_{i:05d}.png"))
+                got = read_png(str(out / f"{k}_{i:05d}.png"))[0]
                 assert got.shape == img.shape and np.array_equal(got, img), k
     finally:
         torch.set_num_threads(n)
-    assert read_png(str(out / "rgb_00000.png")).shape == (cam0.height,
+    assert read_png(str(out / "rgb_00000.png"))[0].shape == (cam0.height,
                                                           cam0.width, 3)
 
 

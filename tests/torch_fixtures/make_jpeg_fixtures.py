@@ -1,6 +1,8 @@
-"""Write the JPEG fixtures of `tests/torch_fixtures/jpeg/` with PIL, and
-beside them `hashes.json`: each file's decoded shape and the SHA-256 of
-the array PIL decodes it to. They hold the port's decoder to PIL on a
+"""Write the JPEG fixtures of `tests/torch_fixtures/jpeg/` with PIL and
+`jpeg_writers.py`, and beside them `hashes.json`: each file's decoded
+shape, PIL's mode and the SHA-256 of the array PIL decodes it to (for a
+CMYK file also of the array `Image.resize` gives at
+`make_png_fixtures.py::resize_size`). They hold the port's decoder to PIL on a
 machine without PIL (`chip_smoke.py`, which imports `encoder_input` and
 `ENCODER` from here: PIL is imported only to write the files);
 `tests/test_torch_jpeg.py` re-derives the hashes with PIL. Besides baseline files: progressive ones
@@ -8,7 +10,11 @@ machine without PIL (`chip_smoke.py`, which imports `encoder_input` and
 odd sizes, and the synthetic room's first frame at 1200x680), an Adobe
 RGB one (colour transform 0), and the encoder's references: PIL's files
 of `encoder_input` at quality 75 and 85 (4:2:0 and grey), which the
-port's `encode_jpeg` writes byte for byte.
+port's `encode_jpeg` writes byte for byte; and the kinds PIL cannot write
+(`written`): arithmetic-coded (sequential with restarts and DAC
+conditioning, progressive, one ended early), progressive files whose
+scans leave bits unsent, YCCK, lossless, PIL's CMYK, and the room frame
+arithmetic-coded and progressive ended after its fourth scan.
 
     python tests/torch_fixtures/make_jpeg_fixtures.py
 """
@@ -18,8 +24,11 @@ import io
 import json
 import os
 
+import sys
+
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jpeg")
 
 
@@ -106,15 +115,72 @@ PROGRESSIVE = {
 ENCODER = {f"enc_{kind}_q{q}_45x67.jpg": (kind, q) for kind in ("rgb", "grey")
            for q in (75, 85)}
 ROOM = "room_prog_q75_1200x680.jpg"
+ROOM_ARITH = "room_arith_q75_1200x680.jpg"
+ROOM_SMOOTH = "room_prog_cut4_q75_1200x680.jpg"
 
 
 def _write(path, data):
     from PIL import Image
     with open(path, "wb") as f:
         f.write(data)
-    arr = np.asarray(Image.open(path))
+    im = Image.open(path)
+    out = {**_entry(im), "mode": im.mode}
+    if im.mode == "CMYK":               # resized band by band by Pillow
+        from make_png_fixtures import resize_size
+        out["resized"] = _entry(im.resize(resize_size(*im.size)))
+    return out
+
+
+def _entry(im) -> dict:
+    arr = np.asarray(im)
     return {"shape": list(arr.shape),
             "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+
+
+def written(room: np.ndarray) -> dict:
+    """The fixtures of the kinds PIL cannot write (`jpeg_writers.py`), and
+    PIL's CMYK one: {name: file bytes}. Among them the room frame
+    arithmetic-coded, and PIL's progressive room file ended after its
+    fourth scan (bits of coefficients 1-9 unsent: smoothed)."""
+    import jpeg_writers as jw
+    from PIL import Image
+    rng = np.random.default_rng(12)
+    rgb = content(rng, 33, 45, "smooth")
+    noise = content(rng, 29, 37, "noise")
+    cmyk = np.concatenate([noise, 255 - noise[..., :1]], -1)
+    buf = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(buf, "JPEG", quality=85)
+    prog = _pil_bytes(room, "RGB", quality=75, progressive=True,
+                      optimize=True)
+    scans = [i for i in range(len(prog) - 1) if prog[i:i + 2] == b"\xff\xda"]
+    simple = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+              ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+              ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+              ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+              ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0)]
+    return {
+        "arith420_rst_dac_33x45.jpg": jw.write_arithmetic(
+            jw.Frame(rgb, "YCbCr", 80), restart=3,
+            dac={0: (1, 4), 1: (0, 2), 16: 10, 17: 3}),
+        "arith_prog444_29x37.jpg": jw.write_arithmetic(
+            jw.Frame(noise, "YCbCr", 70, (1, 1)), simple),
+        "arith_prog_cut_grey_33x45.jpg": jw.write_arithmetic(
+            jw.Frame(rgb[..., 1], "L", 60), [((0,), 0, 0, 0, 2),
+                                             ((0,), 1, 2, 0, 1)]),
+        "unrefined420_33x45.jpg": jw.write_progressive_huffman(
+            jw.Frame(rgb, "YCbCr", 75), simple[:6], restart=4),
+        "unrefined_dc_only_29x37.jpg": jw.write_progressive_huffman(
+            jw.Frame(noise, "YCbCr", 50, (2, 1)), simple[:1]),
+        "cmyk_q85_29x37.jpg": buf.getvalue(),
+        "ycck_arith_29x37.jpg": jw.write_arithmetic(
+            jw.Frame(cmyk, "YCCK", 75)),
+        "lossless_rgb_psv4_33x45.jpg": jw.write_lossless(rgb, 4, 0, "RGB",
+                                                         restart_rows=5),
+        "lossless_grey_psv7_pt2_29x37.jpg": jw.write_lossless(
+            noise[..., 2], 7, 2),
+        ROOM_ARITH: jw.write_arithmetic(jw.Frame(room, "YCbCr", 75)),
+        ROOM_SMOOTH: prog[:scans[4]] + b"\xff\xd9",
+    }
 
 
 def _pil_bytes(img, mode, **opts):
@@ -153,6 +219,8 @@ def main():
     room = np.clip(np.rint(cams[0].image * 255), 0, 255).astype(np.uint8)
     hashes[ROOM] = _write(os.path.join(OUT, ROOM), _pil_bytes(
         room, "RGB", quality=75, progressive=True, optimize=True))
+    for name, data in written(room).items():
+        hashes[name] = _write(os.path.join(OUT, name), data)
     with open(os.path.join(OUT, "hashes.json"), "w") as f:
         json.dump(hashes, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -1,8 +1,10 @@
 """A PNG writer for every colour type, bit depth, row filter and Adam7
 interlacing, for the port's reader tests, and the PNG fixtures of
 `tests/torch_fixtures/png/` that it writes with `hashes.json` beside them:
-each file's decoded shape, dtype and the SHA-256 of the array PIL decodes
-it to (`digest`: a bool array hashed as its 0 / 1 bytes). They hold the port's reader to PIL on a machine without PIL
+each file's decoded shape, dtype, PIL's mode and the SHA-256 of the array
+PIL decodes it to (`digest`: a bool array hashed as its 0 / 1 bytes), and
+for the palette and 1-bit files the same of the array `Image.resize`
+gives at `resize_size` (NEAREST). They hold the port's reader to PIL on a machine without PIL
 (`chip_smoke.py`); `tests/test_torch_native_loader.py` re-derives the
 hashes with PIL.
 
@@ -116,6 +118,18 @@ def digest(arr: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def entry(im) -> dict:
+    """A PIL image's array: its shape, dtype and `digest`."""
+    arr = np.asarray(im)
+    return {"shape": list(arr.shape), "dtype": str(arr.dtype),
+            "sha256": digest(arr)}
+
+
+def resize_size(W: int, H: int) -> list:
+    """The size a fixture is also resized to: wider, and lower."""
+    return [2 * W + 3, H // 2 + 1]
+
+
 def fixture_bytes(rng, H, W, bits, colour_type, interlace, n_palette, trns):
     ch = CHANNELS[colour_type]
     top = n_palette if colour_type == 3 else 2 ** bits
@@ -137,9 +151,10 @@ def main():
         path = os.path.join(OUT, name)
         with open(path, "wb") as f:
             f.write(fixture_bytes(rng, *spec))
-        arr = np.asarray(Image.open(path))
-        hashes[name] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
-                        "sha256": digest(arr)}
+        im = Image.open(path)
+        hashes[name] = {**entry(im), "mode": im.mode}
+        if im.mode in ("P", "1"):         # resized NEAREST by Pillow
+            hashes[name]["resized"] = entry(im.resize(resize_size(*im.size)))
     with open(os.path.join(OUT, "hashes.json"), "w") as f:
         json.dump(hashes, f, indent=1, sort_keys=True)
         f.write("\n")
