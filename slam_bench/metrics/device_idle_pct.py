@@ -1,0 +1,9 @@
+"""100 x (1 - the union of the device's operation intervals over the
+profiled stretch's wall time)."""
+
+
+def read(rec):
+    t = rec.get("trace")
+    if not t or t["window_s"] <= 0 or t["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
