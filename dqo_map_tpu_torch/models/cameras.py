@@ -20,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 def fov2focal(fov: float, pixels: int) -> float:
     return pixels / (2 * math.tan(fov / 2))
@@ -156,20 +158,26 @@ class Camera:
         """float32 tensors on `device`: w2c, cam_pos, full_proj, K and the
         half-FoV tangents. With a device pose everything is computed there,
         in float32, as the reference does on its device. The tangents stay
-        host float32 scalars."""
+        host float32 scalars. Each upload, and the inverse's check of its
+        input, waits for the card (a `render_inputs/.../wait` span each)."""
         tx = np.float32(math.tan(self.FoVx * 0.5))
         ty = np.float32(math.tan(self.FoVy * 0.5))
-        K = torch.as_tensor(self.K, device=device)
+
+        def up(a):
+            with trace.span("render_inputs/upload/wait"):
+                return torch.as_tensor(a, device=device)
+
+        K = up(self.K)
         if self.c2w_dev is not None:
             c2w = self.c2w_dev.to(device=device, dtype=torch.float32)
-            w2c = torch.linalg.inv(c2w)
-            proj = torch.as_tensor(self.projection_matrix, device=device)
+            with trace.span("render_inputs/inverse/wait"):
+                w2c = torch.linalg.inv(c2w)
+            proj = up(self.projection_matrix)
             return {
                 "w2c": w2c, "cam_pos": c2w[:3, 3], "full_proj": proj @ w2c,
                 "K": K, "tan_fovx": tx, "tan_fovy": ty,
             }
-        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
-                                        device=device)
+        f32 = lambda a: up(np.asarray(a, np.float32))  # noqa: E731
         return {
             "w2c": f32(self.w2c),
             "cam_pos": f32(self.camera_center),

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from ..utils.math3d import quaternion_from_two_vectors
 from ..utils.sh import rgb_to_sh
 
@@ -127,7 +128,8 @@ def make_new_points(xyz: torch.Tensor, normal: torch.Tensor, color: torch.Tensor
         rots = torch.zeros((M, 4), dtype=torch.float32, device=dev)
         rots[:, 0] = 1.0
     else:
-        z_axis = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(M, 3)
+        with trace.span("make_new_points/wait"):
+            z_axis = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(M, 3)
         rots = quaternion_from_two_vectors(z_axis, normal)
     opacity = torch.full((M,), math.log(init_opacity / (1 - init_opacity)),
                          dtype=torch.float32, device=dev)
@@ -148,14 +150,20 @@ def add_points(state: MapState, new: dict, status_value: int = UNSTABLE) -> MapS
     valid = new["valid"]
     pos = state.count + torch.cumsum(valid.to(torch.int64), 0) - 1
     keep = valid & (pos < state.capacity)
-    idx = pos[keep]
-    n_valid = int(valid.sum())
     M = valid.shape[0]
     dev = state.device
 
+    # each masked gather and the count wait for the card: one span a read
+    with trace.span("add_points/wait"):
+        idx = pos[keep]
+    with trace.span("add_points/wait"):
+        n_valid = int(valid.sum())
+
     def sc(dst, src):
         out = dst.clone()
-        out[idx] = src[keep].to(dst.dtype)
+        with trace.span("add_points/wait"):
+            rows = src[keep]
+        out[idx] = rows.to(dst.dtype)
         return out
 
     return state.replace(
@@ -205,8 +213,13 @@ def release_points(state: MapState, mask: torch.Tensor, time: int) -> MapState:
 def compact(state: MapState) -> MapState:
     """Move the alive slots to the front, in slot order (frees dead slots)."""
     alive = state.status != DEAD
-    order = torch.cat([torch.nonzero(alive)[:, 0], torch.nonzero(~alive)[:, 0]])
-    n_alive = int(alive.sum())
+    with trace.span("compact/wait"):
+        kept = torch.nonzero(alive)[:, 0]
+    with trace.span("compact/wait"):
+        freed = torch.nonzero(~alive)[:, 0]
+    with trace.span("compact/wait"):
+        n_alive = int(alive.sum())
+    order = torch.cat([kept, freed])
     moved = {f: getattr(state, f)[order] for f in FIELDS}
     moved["status"][n_alive:] = DEAD
     return MapState(**moved, count=n_alive)

@@ -28,6 +28,7 @@ import torch
 from scipy.linalg import sqrtm
 
 from ..ops.rasterize import rasterize
+from ..utils import trace
 from ..utils.math3d import normalize, quat_to_rotmat, rotmat_to_quat
 
 OBS_CAP = 48          # observations kept per object (reference keeps all)
@@ -431,7 +432,8 @@ def _project_bbox(axes, R, center, P):
     a = C[:, 0, 0] + cx * cx
     b = C[:, 0, 1] + cx * cy
     c = C[:, 1, 1] + cy * cy
-    tiny = torch.tensor(1e-12, dtype=dt, device=dev)
+    with trace.span("project_bbox/wait"):
+        tiny = torch.tensor(1e-12, dtype=dt, device=dev)
     mid = 0.5 * (a + c)
     rad = torch.sqrt(torch.maximum(0.25 * (a - c) ** 2 + b * b, tiny))
     l1 = torch.abs(mid + rad)
@@ -483,7 +485,8 @@ def refine_objects(axes, R, center, obs_bbox, obs_P, obs_valid, opt_mask,
     lrs = {"axes": lr_axes, "R": lr_R, "center": lr_center}
     m = {k: torch.zeros_like(v) for k, v in params.items()}
     v = {k: torch.zeros_like(p) for k, p in params.items()}
-    rand_idx = torch.as_tensor(rand_idx, device=axes.device).long()
+    with trace.span("refine_objects/wait"):
+        rand_idx = torch.as_tensor(rand_idx, device=axes.device).long()
     rows = torch.arange(axes.shape[0], device=axes.device)
     for it in range(iters):
         o = rand_idx[it]
@@ -666,15 +669,21 @@ class ObjectLayer:
         rand_idx = self.rng.integers(0, n_obs[None, :], (OBJ_ITERS, O))
         for it in range(OBJ_ITERS // 4 + 1, OBJ_ITERS):
             rand_idx[it] = n_obs - 1
-        args = [torch.as_tensor(a, device=self.device) for a in (
-            axes, R, center, obs_bbox, obs_P, obs_valid, opt_mask)]
+        args = []
+        for a in (axes, R, center, obs_bbox, obs_P, obs_valid, opt_mask):
+            with trace.span("objects/upload/wait"):
+                args.append(torch.as_tensor(a, device=self.device))
         if self.mesh is not None and MAX_OBJECTS % self.mesh.size == 0:
             from ..parallel.dp import shard_objects_refine
             out = shard_objects_refine(self.mesh, *args, rand_idx,
                                        iters=OBJ_ITERS)
         else:
             out = refine_objects(*args, rand_idx)
-        new_axes, new_R, new_center = (x.cpu().numpy() for x in out)
+        host = []
+        for x in out:
+            with trace.span("objects/readback/wait"):
+                host.append(x.cpu().numpy())
+        new_axes, new_R, new_center = host
         for slot, i in enumerate(active):
             self.objects[i].ellipsoid_ = Ellipsoid(
                 np.abs(new_axes[slot]), new_R[slot], new_center[slot])

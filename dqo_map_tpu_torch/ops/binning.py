@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import trace
 from .projection import Preprocessed
 
 DEPTH_BITS = 19
@@ -182,9 +183,11 @@ def bin_gaussians(pre: Preprocessed, width: int, height: int, tile_size: int,
         trunc = torch.where(masked_on, trunc, 0)
     clipped = torch.sum(torch.where(gauss_valid, torch.clamp(area - area_k, min=0), 0))
     # the one host read of the binning: the layout size and the receipts
-    L, num_entries, tile_dropped, clipped = (
-        int(x) for x in torch.stack([poffs[-1], kept_counts.sum(),
-                                     trunc.sum(), clipped.to(torch.int64)]).tolist())
+    with trace.span("bin_gaussians/wait"):
+        L, num_entries, tile_dropped, clipped = (
+            int(x) for x in torch.stack([poffs[-1], kept_counts.sum(),
+                                         trunc.sum(),
+                                         clipped.to(torch.int64)]).tolist())
 
     tiles = torch.arange(num_tiles, device=dev)
     t_of_o = torch.repeat_interleave(tiles, padded, output_size=L)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 BIG = 1e12
 
 
@@ -111,7 +113,9 @@ def scales_from_knn(d2: torch.Tensor, idx: torch.Tensor,
     dist2 = (torch.sum(torch.where(missing, 0.0, dist * dist), dim=1)
              / torch.clamp(cnt, min=1))
     scales = torch.clamp(torch.sqrt(dist2), min_radius, max_radius)
-    factor = torch.tensor([float(f) for f in xyz_factor], device=d2.device)
+    with trace.span("scales_from_knn/wait"):
+        factor = torch.tensor([float(f) for f in xyz_factor],
+                              device=d2.device)
     log_scales = torch.log(scale_factor * scales[:, None] * factor[None, :])
     keep = new_valid & (~invalid) & (cnt > 0)
     return log_scales, keep

@@ -47,10 +47,12 @@ pixels and to 1 elsewhere.
 
 With a mesh (`Mapping.mesh`, installed by `SLAMSystem` under
 `parallel_enabled`) the keyframe scan and the final pass run data-parallel
-(`parallel/dp.py`). The stage timers (`profile_enable`, `stage_times`,
-switched on by `DQO_PROFILE`) time the mapper's, the system's and the
-tracker's stages under the JAX package's tags, each stage waiting for the
-card; with the timers off they cost nothing.
+(`parallel/dp.py`). The mapper's work is in spans of the port's recorder
+(`utils/trace.py`): densification and its KNN, the scans' preparation,
+each Adam step's forward, backward and update, the history merge and the
+host's waits on the card; its stage timers (`profile_enable`,
+`stage_times`, switched on by `DQO_PROFILE`) time the mapper's, the
+system's and the tracker's stages under the JAX package's tags.
 """
 
 from __future__ import annotations
@@ -58,7 +60,6 @@ from __future__ import annotations
 import math
 import os
 import sys
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -81,6 +82,8 @@ from ..utils.math3d import (normalize, quat_to_rotmat, rot_compare, slerp,
                             trans_compare)
 from ..utils.monitor import ScalarLogger
 from ..utils.ply import save_map_ply
+from ..utils import trace
+from ..utils.trace import profile_enable, stage_times  # noqa: F401
 from .renderer import (Renderer, compute_binning_state, coverage_mask_state,
                        render_state, state_geometry)
 
@@ -239,9 +242,11 @@ def _grads(sub: MapState, params: dict, loss_of):
     state being `sub` with its `OPT_FIELDS` the leaves `p`, and the loss's
     gradients in those fields (0 where none reaches)."""
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss, report = loss_of(sub.replace(**p), p)
-    grads = torch.autograd.grad(loss, [p[k] for k in OPT_FIELDS],
-                                allow_unused=True)
+    with trace.span("scans/step/forward"):
+        loss, report = loss_of(sub.replace(**p), p)
+    with trace.span("scans/step/backward"):
+        grads = torch.autograd.grad(loss, [p[k] for k in OPT_FIELDS],
+                                    allow_unused=True)
     return report, {k: torch.zeros_like(p[k]) if g is None else g
                     for k, g in zip(OPT_FIELDS, grads)}
 
@@ -257,15 +262,16 @@ def _adam_scan(sub: MapState, iters: int, lrs: dict, opt_mask,
     confidence = sub.confidence
     reports = []
     for it in range(iters):
-        report, grads = value_and_grad(params, it)
-        with torch.no_grad():
-            params, opt_state = adam_update(params, grads, opt_state, lrs,
-                                            opt_mask)
-            grad_mask = torch.any(grads["sh"][:, 0, :] != 0, dim=-1)
-            confidence = confidence + (grad_mask & opt_mask).float()
-        reports.append({k: v.detach() if torch.is_tensor(v) else
-                        torch.full((), float(v), device=confidence.device)
-                        for k, v in report.items()})
+        with trace.span("scans/step"):
+            report, grads = value_and_grad(params, it)
+            with trace.span("scans/step/adam"), torch.no_grad():
+                params, opt_state = adam_update(params, grads, opt_state,
+                                                lrs, opt_mask)
+                grad_mask = torch.any(grads["sh"][:, 0, :] != 0, dim=-1)
+                confidence = confidence + (grad_mask & opt_mask).float()
+            reports.append({k: v.detach() if torch.is_tensor(v) else
+                            torch.full((), float(v), device=confidence.device)
+                            for k, v in report.items()})
     curves = {k: torch.stack([r[k] for r in reports]) for k in reports[0]} \
         if reports else {}
     return params, confidence, curves
@@ -369,7 +375,8 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
                           frames: dict, rand_idx, lrs: dict, weights,
                           settings: RenderSettings,
                           usettings: RenderSettings, iters: int,
-                          add_depth_thres: float, use_bg: bool = True):
+                          add_depth_thres: float, use_bg: bool = True,
+                          scope: str = "scans/local"):
     """`iters` Adam steps over the rows of `row_mask` alone, gathered once
     into a map of their own, rendered with `usettings` in tile space, and
     scattered back.
@@ -388,52 +395,58 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
     semantic render where `use_bg` (one a frame and scan, every tile,
     packed with the colour background's depth and T).
 
+    `scope` is the caller's scan span; the preparation is its `/prepare`.
+
     Returns (state, report of (iters,) loss curves, the binning receipts
     and the number of background and semantic background renders). Its
     loss is in tile space, so it has no SSIM term."""
     weights = dict(weights)
-    uidx = torch.nonzero(row_mask)[:, 0]
-    sub = _substate(state, uidx, gm.UNSTABLE)
-    valid_u = torch.ones(sub.count, dtype=torch.bool, device=state.device)
-    init_stat = {k: getattr(sub, k) for k in ("opacity", "scaling", "xyz",
-                                              "rotation")}
-    n_frames = frames["w2c"].shape[0]
-    ts, W, H = settings.tile_size, settings.width, settings.height
-    with_semantics = "semantics_color" in frames
-    gt = []
-    for f in range(n_frames):
-        g = {"color_map": tile_map(frames["color"][f], ts, W, H),
-             "depth_map": tile_map(frames["depth"][f], ts, W, H),
-             "normal_map": tile_map(frames["normal"][f], ts, W, H),
-             "render_mask": tile_map(frames["render_mask"][f], ts, W, H)}
-        for k in SEMANTIC_MAPS:
-            if k in frames:
-                g[k] = tile_map(frames[k][f], ts, W, H)
-        gt.append(g)
-    bgs, bgts, bgts_sem = [], [], []
-    if use_bg:
-        with torch.no_grad():
-            for f in range(n_frames):
-                cam = _frame_cam(frames, f)
-                bg = render_state(state, cam, settings, "stable",
-                                  frames["tile_mask"][f], tiled=True)
-                bgs.append({k: bg[k] for k in ("render", "depth", "normal",
-                                               "depth_index_map", "T_map")})
-                bg_depth = torch.where(bg["depth_index_map"] >= 0,
-                                       bg["depth"], 1e30)
-                bgts.append(pack_bg_tiled(bg["render"], bg_depth,
-                                          bg["T_final"]))
-                if with_semantics:
-                    # the stable subset's semantic render, every tile,
-                    # packed with the colour background's depth and T
-                    sem_bg = render_state(state, cam, settings, "stable",
-                                          colors_precomp=state.sem_rgb,
-                                          tiled=True)["render"]
-                    bgts_sem.append(pack_bg_tiled(sem_bg, bg_depth,
-                                                  bg["T_final"]))
-    binnings = [compute_binning_state(sub, _frame_cam(frames, f), usettings,
-                                      "global", frames["tile_mask"][f])
-                for f in range(n_frames)]
+    with trace.span(scope + "/prepare"):
+        with trace.span(scope + "/prepare/gather/wait"):
+            uidx = torch.nonzero(row_mask)[:, 0]
+        sub = _substate(state, uidx, gm.UNSTABLE)
+        valid_u = torch.ones(sub.count, dtype=torch.bool, device=state.device)
+        init_stat = {k: getattr(sub, k) for k in ("opacity", "scaling", "xyz",
+                                                  "rotation")}
+        n_frames = frames["w2c"].shape[0]
+        ts, W, H = settings.tile_size, settings.width, settings.height
+        with_semantics = "semantics_color" in frames
+        gt = []
+        for f in range(n_frames):
+            g = {"color_map": tile_map(frames["color"][f], ts, W, H),
+                 "depth_map": tile_map(frames["depth"][f], ts, W, H),
+                 "normal_map": tile_map(frames["normal"][f], ts, W, H),
+                 "render_mask": tile_map(frames["render_mask"][f], ts, W, H)}
+            for k in SEMANTIC_MAPS:
+                if k in frames:
+                    g[k] = tile_map(frames[k][f], ts, W, H)
+            gt.append(g)
+        bgs, bgts, bgts_sem = [], [], []
+        if use_bg:
+            with torch.no_grad():
+                for f in range(n_frames):
+                    cam = _frame_cam(frames, f)
+                    bg = render_state(state, cam, settings, "stable",
+                                      frames["tile_mask"][f], tiled=True)
+                    bgs.append({k: bg[k] for k in (
+                        "render", "depth", "normal", "depth_index_map",
+                        "T_map")})
+                    bg_depth = torch.where(bg["depth_index_map"] >= 0,
+                                           bg["depth"], 1e30)
+                    bgts.append(pack_bg_tiled(bg["render"], bg_depth,
+                                              bg["T_final"]))
+                    if with_semantics:
+                        # the stable subset's semantic render, every tile,
+                        # packed with the colour background's depth and T
+                        sem_bg = render_state(state, cam, settings, "stable",
+                                              colors_precomp=state.sem_rgb,
+                                              tiled=True)["render"]
+                        bgts_sem.append(pack_bg_tiled(sem_bg, bg_depth,
+                                                      bg["T_final"]))
+        binnings = [compute_binning_state(sub, _frame_cam(frames, f),
+                                          usettings, "global",
+                                          frames["tile_mask"][f])
+                    for f in range(n_frames)]
 
     def loss_of(st, f, p):
         cam = _frame_cam(frames, f)
@@ -540,8 +553,9 @@ def render_range_step(state: MapState, cam: dict, settings: RenderSettings,
         image_diff = torch.abs(out["render"] - gt_color).sum(dim=-1)
         image_diff = torch.where(out["render"].sum(dim=-1) == 0, 0.0,
                                  image_diff)
-        tile_mask = im.colorerror_to_tilemask(image_diff, tile_size,
-                                              sample_ratio)
+        with trace.span("scans/keyframe/prepare/tiles/wait"):
+            tile_mask = im.colorerror_to_tilemask(image_diff, tile_size,
+                                                  sample_ratio)
         render_mask = im.tilemask_to_pixelmask(tile_mask, tile_size,
                                                *T_map.shape)
     else:
@@ -632,7 +646,9 @@ def densify_step(state: MapState, frame_map: dict, cam: dict, model_map: dict,
     mask_unst = torch.cat([torch.zeros(M, dtype=torch.bool, device=dev),
                            state.status[:B] == gm.UNSTABLE])
     mask_all = torch.cat([new["valid"], state.status[:B] != gm.DEAD])
-    (d2u, iu), (d2a, ia) = knn2(new["xyz"], cand_xyz, mask_unst, mask_all, k=8)
+    with trace.span("mapping/add/densify/knn", staged=True):
+        (d2u, iu), (d2a, ia) = knn2(new["xyz"], cand_xyz, mask_unst, mask_all,
+                                    k=8)
     nn_rad = cand_rad[iu[:, :3]] * 0.6
     covered = (torch.any(torch.sqrt(d2u[:, :3]) < nn_rad, dim=-1)
                & (state.num_unstable() > 0))
@@ -665,7 +681,8 @@ def densify_step(state: MapState, frame_map: dict, cam: dict, model_map: dict,
     new["scaling"], new["valid"] = scales_from_knn(
         d2a, ia, new["valid"], cand_rad, cand_excluded,
         scale_factor, (xf0, xf1, xf2), min_radius, max_radius)
-    n_added = int(new["valid"].sum())
+    with trace.span("mapping/add/densify/wait"):
+        n_added = int(new["valid"].sum())
     return gm.add_points(state, new), n_added
 
 
@@ -751,61 +768,6 @@ def error_remove_from(state: MapState, out: dict, frame_map: dict,
 
 
 # ---------------------------------------------------------------------------
-# stage timers
-# ---------------------------------------------------------------------------
-
-_PROFILE = bool(os.environ.get("DQO_PROFILE"))
-_STAGES: dict = {}          # tag -> [ms] while profiling is on
-
-
-def profile_enable(flag: bool = True):
-    """Switch the stage timers on or off (`DQO_PROFILE` sets the start).
-    Each timed stage waits for the card, so with the timers on the host no
-    longer runs ahead of it: they give the split of a frame, not its
-    time."""
-    global _PROFILE
-    _PROFILE = flag
-
-
-def stage_times(reset: bool = False) -> dict:
-    """{tag: [ms, ...]} recorded since the last reset."""
-    global _STAGES
-    out = {k: list(v) for k, v in _STAGES.items()}
-    if reset:
-        _STAGES = {}
-    return out
-
-
-def _first_tensor(out):
-    if torch.is_tensor(out):
-        return out
-    for x in (out.values() if isinstance(out, dict) else out):
-        t = _first_tensor(x)
-        if t is not None:
-            return t
-    return None
-
-
-def _pr(tag, t0, out=None):
-    """With the timers on: wait for the card where `out` (a tensor, or a
-    list or dict of them) lies on one, then record and print the ms since
-    `t0` under `tag`. Returns at once with the timers off."""
-    if not _PROFILE:
-        return
-    if out is not None:
-        leaf = _first_tensor(out)
-        if leaf is not None and leaf.is_cuda:
-            torch.cuda.synchronize(leaf.device)
-    ms = (time.perf_counter() - t0) * 1000
-    _STAGES.setdefault(tag, []).append(ms)
-    print(f"#   {tag}: {ms:.1f} ms", file=sys.stderr)
-
-
-def _now() -> float:
-    return time.perf_counter() if _PROFILE else 0.0
-
-
-# ---------------------------------------------------------------------------
 # host-side Mapping orchestrator
 # ---------------------------------------------------------------------------
 
@@ -881,14 +843,13 @@ class Mapping:
 
     def get_render_output(self, cam_inputs: dict) -> dict:
         """The model render of the whole map at `cam_inputs`."""
-        t0 = _now()
-        out = render_state(self.state, cam_inputs, self.settings, "global",
-                           with_n_touched=bool(getattr(self.args, "use_prune",
-                                                       False)))
-        for k in RECEIPTS:
-            self.receipts[k] = max(self.receipts[k], int(out[k]))
-        self.renders += 1
-        _pr("render/_render_global", t0, out["depth"])
+        with trace.span("render/model", tag="render/_render_global"):
+            out = render_state(self.state, cam_inputs, self.settings,
+                               "global", with_n_touched=bool(
+                                   getattr(self.args, "use_prune", False)))
+            for k in RECEIPTS:
+                self.receipts[k] = max(self.receipts[k], int(out[k]))
+            self.renders += 1
         self.model_map = out
         return out
 
@@ -911,7 +872,8 @@ class Mapping:
         """Queue the map's (n_unstable, n_stable) into pinned host memory
         at the end of a frame (`HostCopy`); the next `counts()` reads that
         snapshot, as the JAX package's `_prefetch_counts` does."""
-        self._counts_copy = HostCopy(self._count_tensor())
+        self._counts_copy = HostCopy(self._count_tensor(),
+                                     "mapping/counts/wait")
         self._cached_counts = None
 
     def _count_tensor(self) -> torch.Tensor:
@@ -932,7 +894,8 @@ class Mapping:
             copy, self._counts_copy = self._counts_copy, None
             if copy is None:
                 self.live_count_reads += 1
-                vals = self._count_tensor().tolist()
+                with trace.span("mapping/counts/wait"):
+                    vals = self._count_tensor().tolist()
             else:
                 self.waited_count_reads += not copy.done()
                 vals = copy.numpy()
@@ -956,9 +919,8 @@ class Mapping:
         if is_first:
             model_map = self._zero_model_map()
         else:
-            t0 = _now()
-            model_map = self.get_render_output(cam)
-            _pr("add/model_render", t0, model_map["depth"])
+            with trace.span(tag="add/model_render"):
+                model_map = self.get_render_output(cam)
         a = self.args
         cfg = (a.uniform_sample_num, a.add_transmission_thres,
                a.transmission_sample_ratio, a.add_depth_thres,
@@ -971,12 +933,11 @@ class Mapping:
                 self.width, self.height, self.time, a.unstable_time_window // 2)
             # the render no longer matches the map: finalize must not reuse it
             self.model_map = None
-        t0 = _now()
-        self.state, n_added = densify_step(
-            self.state, frame_map, cam, model_map, is_first,
-            self._uniform_draws(self.width * self.height), self.time,
-            frame_id, a.add_capacity, cfg)
-        _pr("add/densify", t0, self.state.xyz)
+        with trace.span("mapping/add/densify", tag="add/densify"):
+            self.state, n_added = densify_step(
+                self.state, frame_map, cam, model_map, is_first,
+                self._uniform_draws(self.width * self.height), self.time,
+                frame_id, a.add_capacity, cfg)
         self._maybe_compact()
         return n_added
 
@@ -1106,44 +1067,45 @@ class Mapping:
         """Optimize the unstable Gaussians over the memory frames, then
         merge them back towards their values before the scan."""
         ts = self.settings.tile_size
-        t0 = _now()
         entries = []
-        for fi, (cam, fm) in enumerate(self.processed_frames):
-            ti = _now()
-            # the tiles the unstable subset's rects cover (no render)
-            tm = coverage_mask_state(self.state, cam, self.settings, "unstable")
-            rm = im.tilemask_to_pixelmask(tm, ts, self.height, self.width)
-            entries.append({"color": fm["color_map"], "depth": fm["depth_map"],
-                            "normal": fm["normal_map_w"], "render_mask": rm,
-                            "tile_mask": tm, "cam": cam,
-                            "semantics_color": fm.get("semantics"),
-                            "instance_img": fm.get("instance_img")})
-            _pr(f"local/range_{fi}", ti, tm)
-        _pr("local/range_renders", t0, [e["tile_mask"] for e in entries])
-        t0 = _now()
-        frames = self._stack_frames(entries, ts)
+        with trace.span("scans/local/prepare", tag="local/range_renders"):
+            for fi, (cam, fm) in enumerate(self.processed_frames):
+                with trace.span(tag=f"local/range_{fi}"):
+                    # the tiles the unstable subset's rects cover (no render)
+                    tm = coverage_mask_state(self.state, cam, self.settings,
+                                             "unstable")
+                    rm = im.tilemask_to_pixelmask(tm, ts, self.height,
+                                                  self.width)
+                    entries.append({
+                        "color": fm["color_map"], "depth": fm["depth_map"],
+                        "normal": fm["normal_map_w"], "render_mask": rm,
+                        "tile_mask": tm, "cam": cam,
+                        "semantics_color": fm.get("semantics"),
+                        "instance_img": fm.get("instance_img")})
         iters = int(self.args.gaussian_update_iter)
-        rand_idx = self._rand_schedule(iters, len(entries))
-        confidence_pre = self.state.confidence
-        history = {"xyz": self.state.xyz, "sh": self.state.sh,
-                   "scaling": self.state.scaling,
-                   "rotation_act": normalize(self.state.rotation)}
-        opt_mask = self.state.unstable_mask()
-        if self.local_opt_mode == "global":
-            self.state, reports = optimize_scan(
-                self.state, frames, rand_idx, self._lrs(), self._weights_t(),
-                self.settings, iters, gm.UNSTABLE, self.args.add_depth_thres)
-        else:
-            self.state, reports = compact_optimize_scan(
-                self.state, opt_mask, frames, rand_idx, self._lrs(),
-                self._weights_t(), self.settings, self.usettings, iters,
-                self.args.add_depth_thres, use_bg=True)
-        _pr(f"local/optimize_scan x{iters}", t0, self.state.xyz)
+        with trace.span(tag=f"local/optimize_scan x{iters}"):
+            frames = self._stack_frames(entries, ts)
+            rand_idx = self._rand_schedule(iters, len(entries))
+            confidence_pre = self.state.confidence
+            history = {"xyz": self.state.xyz, "sh": self.state.sh,
+                       "scaling": self.state.scaling,
+                       "rotation_act": normalize(self.state.rotation)}
+            opt_mask = self.state.unstable_mask()
+            if self.local_opt_mode == "global":
+                self.state, reports = optimize_scan(
+                    self.state, frames, rand_idx, self._lrs(),
+                    self._weights_t(), self.settings, iters, gm.UNSTABLE,
+                    self.args.add_depth_thres)
+            else:
+                self.state, reports = compact_optimize_scan(
+                    self.state, opt_mask, frames, rand_idx, self._lrs(),
+                    self._weights_t(), self.settings, self.usettings, iters,
+                    self.args.add_depth_thres, use_bg=True)
         self._count_scan("local", reports)
-        t0 = _now()
-        self.state = history_merge(self.state, history, confidence_pre,
-                                   opt_mask, self.args.history_merge_max_weight)
-        _pr("local/history_merge", t0, self.state.xyz)
+        with trace.span("scans/local/merge", tag="local/history_merge"):
+            self.state = history_merge(self.state, history, confidence_pre,
+                                       opt_mask,
+                                       self.args.history_merge_max_weight)
 
     def global_optimization(self, select_keyframe_num: int = -1,
                             is_end: bool = False):
@@ -1172,16 +1134,19 @@ class Mapping:
         n_sel = (len(self.keyframes) if is_final
                  else min(select_keyframe_num, len(self.keyframes)))
         entries = []
-        for _, cam, keymap in (self.keyframes[-(i + 1)] for i in range(n_sel)):
-            rm, tm = render_range_step(self.state, cam, self.settings, True,
-                                       -1.0 if is_final else 0.4,
-                                       keymap["color"], ts)
-            self.scan_counts["range_renders"] += 1
-            entries.append({"color": keymap["color"], "depth": keymap["depth"],
-                            "normal": keymap["normal"], "render_mask": rm,
-                            "tile_mask": None if is_final else tm, "cam": cam,
-                            "semantics_color": keymap.get("semantics"),
-                            "instance_img": keymap.get("instance")})
+        with trace.span(None if is_final else "scans/keyframe/prepare"):
+            for _, cam, keymap in (self.keyframes[-(i + 1)]
+                                   for i in range(n_sel)):
+                rm, tm = render_range_step(self.state, cam, self.settings,
+                                           True, -1.0 if is_final else 0.4,
+                                           keymap["color"], ts)
+                self.scan_counts["range_renders"] += 1
+                entries.append({
+                    "color": keymap["color"], "depth": keymap["depth"],
+                    "normal": keymap["normal"], "render_mask": rm,
+                    "tile_mask": None if is_final else tm, "cam": cam,
+                    "semantics_color": keymap.get("semantics"),
+                    "instance_img": keymap.get("instance")})
         if self.mesh is not None:
             from ..parallel.dp import dp_slots
             entries, fweight = dp_slots(
@@ -1214,13 +1179,18 @@ class Mapping:
                 iters, gm.STABLE, a.add_depth_thres, use_ssim=True,
                 with_tile_mask=False, subset="stable")
         else:
-            mask = touched_rows(self.state, frames, self.settings, gm.STABLE)
-            if int(mask.sum()) == 0:
+            with trace.span("scans/keyframe/prepare"):
+                mask = touched_rows(self.state, frames, self.settings,
+                                    gm.STABLE)
+                with trace.span("scans/keyframe/prepare/touched/wait"):
+                    touched = int(mask.sum())
+            if touched == 0:
                 return
-            self.state, reports = compact_optimize_scan(
-                self.state, mask, frames, rand_idx, lrs, weights,
-                self.settings, self.settings, iters, a.add_depth_thres,
-                use_bg=False)
+            with trace.span("scans/keyframe/scan", staged=True, steps=iters):
+                self.state, reports = compact_optimize_scan(
+                    self.state, mask, frames, rand_idx, lrs, weights,
+                    self.settings, self.settings, iters, a.add_depth_thres,
+                    use_bg=False, scope="scans/keyframe")
         self._count_scan("final" if is_final else "global", reports)
 
     def mapping(self, frame: Camera, frame_map: dict, frame_id: int,
@@ -1240,17 +1210,18 @@ class Mapping:
         exceeds ten times the stable mean."""
         if object_layer is not None:
             if frame.detections is not None:
-                object_layer.process_frame(frame, frame_id)
-            frame_map["obj_id_map"] = torch.as_tensor(
-                object_layer.obj_id_image(frame.width, frame.height),
-                device=self.device)
+                with trace.span("objects/associate"):
+                    object_layer.process_frame(frame, frame_id)
+            with trace.span("mapping/obj_ids/wait"):
+                frame_map["obj_id_map"] = torch.as_tensor(
+                    object_layer.obj_id_image(frame.width, frame.height),
+                    device=self.device)
         # the frame's counts are read as it begins, as the JAX package's
         # `_update_bucket` reads them: the previous frame's snapshot, or
         # the empty map's before the first frame
         self.counts()
-        t0 = _now()
-        self.gaussians_add(frame, frame_map, frame_id)
-        _pr("gaussians_add", t0, self.state.xyz)
+        with trace.span("mapping/add", tag="gaussians_add"):
+            self.gaussians_add(frame, frame_map, frame_id)
         self.processed_frames.append((frame.render_inputs(self.device), frame_map))
         if len(self.processed_frames) > self.memory_length:
             self.processed_frames.pop(0)
@@ -1262,14 +1233,16 @@ class Mapping:
             is_keyframe = self.check_keyframe(frame, frame_map, frame_id)
             if int(self.args.gaussian_update_iter) > 0:
                 if not is_keyframe or self.counts()[1] <= 0:
-                    self.local_optimize(frame)
+                    with trace.span("scans/local"):
+                        self.local_optimize(frame)
                 else:
-                    t0 = _now()
-                    self.global_optimization(self.args.global_keyframe_num)
-                    _pr("global_optimization", t0, self.state.xyz)
+                    with trace.span("scans/keyframe",
+                                    tag="global_optimization"):
+                        self.global_optimization(self.args.global_keyframe_num)
             if (object_layer is not None and (is_keyframe or frame_id == 0)
                     and self.object_mode == 1):
-                object_layer.optimize_objects()
+                with trace.span("objects/refine", staged=True):
+                    object_layer.optimize_objects()
         if (object_layer is not None and frame.detections
                 and self.object_mode == 0):
             object_layer.optimize_objects_render(frame, self.settings)
@@ -1278,33 +1251,34 @@ class Mapping:
                                           unstable=False)
         if not defer_finalize:
             a = self.args
-            t0 = _now()
-            self.state = gaussians_fix(self.state, a.stable_confidence_thres)
-            if self.processed_frames and self.counts()[1] > 0:
-                last_cam, last_fm = self.processed_frames[-1]
-                self.state = error_remove_step(
-                    self.state, last_fm, last_cam, self.settings,
-                    a.add_color_thres, a.add_depth_thres, a.add_normal_thres,
-                    self.time)
-            self.state = gaussians_delete(self.state, self.time,
-                                          a.unstable_time_window,
-                                          unstable=True)
-            _pr("fix+error_remove+delete", t0, self.state.xyz)
+            with trace.span("mapping/finalize",
+                            tag="fix+error_remove+delete"):
+                self.state = gaussians_fix(self.state,
+                                           a.stable_confidence_thres)
+                if self.processed_frames and self.counts()[1] > 0:
+                    last_cam, last_fm = self.processed_frames[-1]
+                    self.state = error_remove_step(
+                        self.state, last_fm, last_cam, self.settings,
+                        a.add_color_thres, a.add_depth_thres,
+                        a.add_normal_thres, self.time)
+                self.state = gaussians_delete(self.state, self.time,
+                                              a.unstable_time_window,
+                                              unstable=True)
             self._prefetch_counts()
         return is_keyframe
 
     def finalize_frame(self, out: dict, frame_map: dict):
         """Promote / error-remove / delete on the end-of-frame render `out`."""
         a = self.args
-        t0 = _now()
-        self.state = gaussians_fix(self.state, a.stable_confidence_thres)
-        if self.counts()[1] > 0:
-            self.state = error_remove_from(
-                self.state, out, frame_map, a.add_color_thres,
-                a.add_depth_thres, a.add_normal_thres, self.time)
-        self.state = gaussians_delete(self.state, self.time,
-                                      a.unstable_time_window, unstable=True)
-        _pr("finalize(fix+err+del)", t0, self.state.xyz)
+        with trace.span("mapping/finalize", tag="finalize(fix+err+del)"):
+            self.state = gaussians_fix(self.state, a.stable_confidence_thres)
+            if self.counts()[1] > 0:
+                self.state = error_remove_from(
+                    self.state, out, frame_map, a.add_color_thres,
+                    a.add_depth_thres, a.add_normal_thres, self.time)
+            self.state = gaussians_delete(self.state, self.time,
+                                          a.unstable_time_window,
+                                          unstable=True)
         self._prefetch_counts()
 
     # --------------------------------------------------------------

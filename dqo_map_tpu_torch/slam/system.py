@@ -41,7 +41,8 @@ from ..utils.monitor import Recorder
 from ..utils.ply import densify_point_cloud, write_point_normal_ply
 from ..utils.png import write_png
 from ..parallel.dp import make_mesh
-from .mapper import Mapping, _now, _pr
+from ..utils import trace
+from .mapper import Mapping
 from .renderer import render_instance, render_semantic
 from .tracker import Tracker
 
@@ -99,7 +100,13 @@ class SLAMSystem:
         """One tracked and mapped frame. The caller advances
         `mapping.time` after it, as `run` does. Returns the tracking and
         mapping seconds (device times in strict mode, host times on the
-        frames that do not wait otherwise) and the end-of-frame render."""
+        frames that do not wait otherwise) and the end-of-frame render.
+        With the recorder on (`utils/trace.py`) the frame is one
+        `system/step#<frame_id>` span."""
+        with trace.frame(frame_id):
+            return self._step(frame, frame_id)
+
+    def _step(self, frame: Camera, frame_id: int) -> dict:
         t0 = time.perf_counter()
         if (self.tracker_max_fps > 0 and self.sync_method != "strict"
                 and self._last_step_t is not None):
@@ -108,12 +115,14 @@ class SLAMSystem:
                 time.sleep(wait)
                 t0 = time.perf_counter()
         self._last_step_t = t0
-        tp0 = _now()
-        frame_map = self.tracker.map_preprocess(frame, frame_id)
-        self.tracker.tracking(frame, frame_map)
-        _pr("tracker", tp0, frame_map["vertex_map_w"])
+        with trace.span(tag="tracker"):
+            with trace.span("tracking/preprocess"):
+                frame_map = self.tracker.map_preprocess(frame, frame_id)
+            with trace.span("tracking/icp"):
+                self.tracker.tracking(frame, frame_map)
         if self.sync_method == "strict":
-            self._sync()
+            with trace.span("tracking/sync/wait"):
+                self._sync()
         t1 = time.perf_counter()
         self.recorder.update_mean("tracking", t1 - t0)
 
@@ -124,9 +133,9 @@ class SLAMSystem:
         # the pre-densify render of `gaussians_add` (same pose, the map less
         # this frame's new points, whose error counters are zero) serves.
         if self.mapping.did_optimize or self.mapping.model_map is None:
-            tr = _now()
-            out = self.mapping.get_render_output(frame.render_inputs(self.device))
-            _pr("get_render_output", tr, out["depth"])
+            with trace.span(tag="get_render_output"):
+                out = self.mapping.get_render_output(
+                    frame.render_inputs(self.device))
         else:
             out = self.mapping.model_map
         self.mapping.finalize_frame(out, frame_map)
@@ -134,7 +143,8 @@ class SLAMSystem:
             frame, out["depth"], frame_map["depth_map"], out["normal"],
             frame_map["normal_map_w"])
         if self._frame_syncs(frame_id):
-            self._sync()
+            with trace.span("mapping/sync/wait"):
+                self._sync()
         t2 = time.perf_counter()
         self.recorder.update_mean("mapping", t2 - t1)
         return {"tracker_s": t1 - t0, "mapper_s": t2 - t1, "render": out}

@@ -36,9 +36,9 @@ import torch.nn.functional as F
 from ..models.cameras import Camera
 from ..utils import image as im
 from ..utils.host_copy import HostCopy
+from ..utils import trace
 from ..utils.math3d import eval_ate
 from .icp import IcpConfig, IcpGraph, icp_pyramid
-from .mapper import _now, _pr
 from .pose_backend import PoseBackend
 
 
@@ -220,9 +220,9 @@ class Tracker:
                         self.icp_fail_count += 1
                         self._dump_icp_failure(frame_map, p_prev, None)
                 self._pending_p2p = HostCopy(torch.stack(
-                    [p2p, valid_ratio.float()]))
+                    [p2p, valid_ratio.float()]), "tracking/icp/residual/wait")
                 pose_dev = self._pose_dev() @ pose10
-                pose_copy = HostCopy(pose_dev)
+                pose_copy = HostCopy(pose_dev, "tracking/pose/wait")
                 self._last_pyr = self._curr_pyr
                 self._append_pose(pose_dev, pose_copy)
                 frame.set_pose_device(pose_dev, pose_copy)
@@ -234,14 +234,15 @@ class Tracker:
             if self.pose_backend is not None:
                 # the native detection needs no pose: it runs while the
                 # device still computes the ICP result
-                t0 = _now()
-                self.pose_backend.detect(frame)
-                _pr("tracker/feature_detect", t0)
+                with trace.span(tag="tracker/feature_detect",
+                                wait_end=False):
+                    self.pose_backend.detect(frame)
             # one readback of the pose and the residual
-            t0 = _now()
-            host = torch.cat([pose10.reshape(-1), p2p.reshape(1).float(),
-                              valid_ratio.reshape(1).float()]).cpu().numpy()
-            _pr("tracker/pose_sync", t0)
+            with trace.span("tracking/icp/readback/wait",
+                            tag="tracker/pose_sync", wait_end=False):
+                host = torch.cat([pose10.reshape(-1), p2p.reshape(1).float(),
+                                  valid_ratio.reshape(1).float()]
+                                 ).cpu().numpy()
             pose10 = host[:16].reshape(4, 4).astype(np.float64)
             p2p, valid_ratio = float(host[16]), float(host[17])
             success = (p2p <= self.icp_cfg.fail_threshold
@@ -251,16 +252,19 @@ class Tracker:
                 self._dump_icp_failure(frame_map, p2p, pose10)
             if self.pose_backend is not None:
                 # fusion, the feature pose standing in where ICP failed
-                t0 = _now()
-                pose_t1_w = self.pose_backend.track(frame, pose10, success)
-                _pr("tracker/feature_backend", t0)
+                with trace.span(tag="tracker/feature_backend",
+                                wait_end=False):
+                    pose_t1_w = self.pose_backend.track(frame, pose10,
+                                                        success)
             else:
                 pose_t1_w = self._pose_np(len(self.pose_es) - 1) @ pose10
 
         self._last_pyr = self._curr_pyr
         self._append_pose(np.asarray(pose_t1_w, np.float64))
         frame.update_pose(pose_t1_w)
-        c2w = torch.as_tensor(frame.c2w, dtype=torch.float32, device=self.device)
+        with trace.span("tracking/pose/upload/wait"):
+            c2w = torch.as_tensor(frame.c2w, dtype=torch.float32,
+                                  device=self.device)
         frame_map["vertex_map_w"] = im.transform_map(frame_map["vertex_map_c"], c2w)
         frame_map["normal_map_w"] = im.rotate_map(frame_map["normal_map_c"], c2w)
         return success
@@ -299,8 +303,9 @@ class Tracker:
             p = self.pose_es[-1]
             if isinstance(p, torch.Tensor):
                 return p
-            return torch.as_tensor(np.asarray(p), dtype=torch.float32,
-                                   device=self.device)
+            with trace.span("tracking/pose/upload/wait"):
+                return torch.as_tensor(np.asarray(p), dtype=torch.float32,
+                                       device=self.device)
         return torch.eye(4, dtype=torch.float32, device=self.device)
 
     def _dump_icp_failure(self, frame_map: dict, p2p: float,
