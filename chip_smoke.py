@@ -13,10 +13,20 @@ reader and the `run_slam` CLI (step 9), and the no-wait phase, ICP-only
 tracking in loose sync under the sync debug mode (step 10).
 
 1. Builds the two blend kernels, K1 forward (`dqo_map_tpu_torch/csrc/
-   blend_fwd.cu`) and K2 backward (`csrc/blend_bwd.cu`), with nvcc for
-   sm_90a, one nvcc per source, both started together; then the feature
-   pose backend (`runtime/orb_backend.cc`) and the JPEG decoder
-   (`csrc/jpeg_decode.cc`) with g++ into `dqo_map_tpu_torch/_build/`.
+   blend_fwd.cu`) and K2 backward (`csrc/blend_bwd.cu`), and K3,
+   densification's exact KNN (`csrc/knn.cu`), with nvcc for sm_90a, one
+   nvcc per source, all started together, printing what `-Xptxas -v`
+   says of each kernel; then the feature pose backend
+   (`runtime/orb_backend.cc`) and the JPEG decoder (`csrc/jpeg_decode.cc`)
+   with g++ into `dqo_map_tpu_torch/_build/`. Then K3 at the benchmark's
+   explore densify shapes (`knn_phase`): held rank by rank to a float64
+   brute force and to its plain version (`knn2_ref`, the chunked
+   `torch.topk` path it replaced), whose indices may differ only at the
+   expansion's near-ties, its time per call by CUDA events with the L2
+   flushed before each call, the search kernel's own device time, the
+   plain version's time and the bound.
+   After step 2, the same check and timing of K3 on the last densified
+   frame's own inputs, and its launches there (`knn_path_a`).
 2. Runs the port's main path, `SLAMSystem.run()`, in bench.py's
    configuration (bench.py:73-116) over synthetic RGB-D frames with
    detections at the benchmark's Replica office0 scale: 1200x680, 40,800
@@ -177,6 +187,17 @@ OPS_FWD = 28
 OPS_FWD_BG = 36
 OPS_BWD = 62
 WARMUP_FRAMES = 3
+# K3 at explore's densify shapes: `add_capacity` new points, first among
+# the candidates, then the map's slots up to its watermark (53-61k at the
+# quality frame, PERF.md section 4); k as `densify_step` asks
+KNN_M = 98_304
+KNN_N = 155_000
+KNN_K = 8
+KNN_OPS = 8                   # a pair: 3 subtractions, 3 products, 2 sums
+KNN_REL = 1e-6                # K3's own rounding, of the distance
+KNN_EXPANSION_ROUNDING = 2e-6  # the plain version's, of |q|^2 + |c|^2
+KNN_REPS = 20
+L2_FLUSH_BYTES = 256 << 20    # well over the H100's 50 MB L2
 ADAM_STEPS = 50               # bench.py:111's gaussian_update_iter
 PROFILED_ITERS = 5            # final-pass iterations under --profile
 # K2 against its plain version: the places where exactly one of the two
@@ -617,7 +638,8 @@ def run_main_path(args, device, rec):
     """`SLAMSystem.run()` over `args.frames` frames. Returns (system,
     cameras, per-frame infos, the final pass's `FinalPass.info`, the run's
     result, the seconds of its evaluations and exports, launches,
-    seconds, the timed window, the host-side logs, the colour passes)."""
+    seconds, the timed window, the host-side logs, the colour passes,
+    K3's launches a densified frame with the last frame's search inputs)."""
     import torch
     from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
     from dqo_map_tpu_torch.slam.system import SLAMSystem
@@ -668,14 +690,42 @@ def run_main_path(args, device, rec):
     for obj, name in ((backend, "detect"), (backend, "track"),
                       (system.object_layer, "optimize_objects")):
         timed(obj, name, host)
+    # K3 once a densified frame: its launches within each call, and the
+    # last call's inputs, for knn_path_a
+    from dqo_map_tpu_torch.ops import knn
+    from dqo_map_tpu_torch.slam import mapper as mapper_mod
+    densify, search = mapper_mod.densify_step, mapper_mod.knn2
+    k3 = {"calls": [], "inputs": None}
+
+    def counted_densify(*a, **kw):
+        before = dict(knn.LAUNCHES)
+        out = densify(*a, **kw)
+        k3["calls"].append({k: knn.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    def kept_search(*a, **kw):
+        k3["inputs"] = ([x.clone() for x in a[:4]], a[4:], dict(kw))
+        return search(*a, **kw)
+
+    mapper_mod.densify_step = counted_densify
+    mapper_mod.knn2 = kept_search
     scans0 = dict(m.scan_counts)
     reset_launches()
     t0 = time.perf_counter()
-    with rec:
-        result = system.run(eval_every=args.frames, verbose=False)
+    try:
+        with rec:
+            result = system.run(eval_every=args.frames, verbose=False)
+    finally:
+        mapper_mod.densify_step, mapper_mod.knn2 = densify, search
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     launches = launches_now()
+    calls = k3["calls"]
+    print(f"K3 on the main path: {len(calls)} densified frames, launches "
+          f"{ {k: sum(c[k] for c in calls) for k in knn.LAUNCHES} }")
+    if not calls or any(c != {"knn_pack": 1, "knn": 1} for c in calls):
+        raise RuntimeError(f"densification launched K3 {calls}, wanted "
+                           "the pack and the search once a frame")
     del system.step, m.global_optimization      # the wrappers
     del system._eval, system.tracker.save_traj, m.save_model
     del system.save_object_passes, backend.detect, backend.track
@@ -699,7 +749,7 @@ def run_main_path(args, device, rec):
         report_profile(*final.info.pop("profile"), "final-pass iteration",
                        "final_pass_trace.json")
     return (system, cams, infos, final.info, result, tail, launches, seconds,
-            window, host, passes)
+            window, host, passes, k3)
 
 
 def check_count_reads(infos, m):
@@ -831,6 +881,190 @@ def device_ms(fn, symbol: str, reps: int) -> float:
             return sum(e.self_device_time_total for e in hits) / n / 1e3
     raise RuntimeError(f"the profiler saw {n} launches of {symbol} in "
                        f"{reps} calls")
+
+
+def knn_against_plain(args, got, ref, limit) -> float:
+    """Hold K3's `knn2` output `got` to the plain version's `ref` on the
+    same inputs `args`, rank by rank (both recompute their winners'
+    distances alike): the same slots filled; each rank's distance within
+    the plain version's rounding (its expansion |q|^2 + |c|^2 - 2 q.c in
+    float32, KNN_EXPANSION_ROUNDING of the largest |q|^2 + |c|^2, plus
+    KNN_REL of the distance); and the same index at every rank whose
+    distance lies further than that from both neighbours in K3's list.
+    The last rank's neighbour beyond the list is unseen, so the last rank
+    is held by its distance alone. Returns the share of rows whose ordered
+    indices differ anywhere (near-ties), and raises where it reaches
+    `limit` (None: no limit)."""
+    import torch
+    from dqo_map_tpu_torch.ops.knn import BIG
+    q, c = args[0], args[1]
+    atol = KNN_EXPANSION_ROUNDING * float((q * q).sum(1).max()
+                                          + (c * c).sum(1).max())
+    differ = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+    for s, ((gd, gi), (rd, ri)) in enumerate(zip(got, ref)):
+        filled = gd < 0.5 * BIG
+        tol = KNN_REL * rd + atol
+        edge = torch.full_like(gd[:, :1], -torch.inf)
+        gap_lo = gd - torch.cat([edge, gd[:, :-1]], 1)
+        gap_hi = torch.cat([gd[:, 1:], edge], 1) - gd
+        clear = filled & (gap_lo > tol) & (gap_hi > tol)
+        bad = ((filled != (rd < 0.5 * BIG)).any(1)
+               | (filled & ((gd - rd).abs() > tol)).any(1)
+               | (clear & (gi != ri)).any(1))
+        if bad.any():
+            r = int(bad.nonzero()[0])
+            raise RuntimeError(
+                f"K3, list {'ab'[s]}: {int(bad.sum())} rows disagree with "
+                f"the plain version beyond its rounding; row {r}: "
+                f"{gd[r].tolist()} {gi[r].tolist()} against "
+                f"{rd[r].tolist()} {ri[r].tolist()}")
+        differ |= (filled & (gi != ri)).any(1)
+    share = float(differ.float().mean())
+    if limit is not None and share >= limit:
+        raise RuntimeError(f"K3: the ordered indices of {share:.4%} of rows "
+                           f"differ from the plain version's")
+    return share
+
+
+def knn_against_f64(args, got, rows: int = 512) -> float:
+    """Hold K3's `knn2` output `got` to a float64 brute force on the card
+    by direct differences, rank by rank: the same slots filled, each
+    rank's distance (recomputed in float64) within KNN_REL of the brute
+    force's at that rank, and the same index wherever the brute force's
+    gap to both neighbouring ranks (rank k + 1 included) exceeds that.
+    Returns the share of rows whose ordered indices differ anywhere
+    (float32 ties)."""
+    import torch
+    from dqo_map_tpu_torch.ops.knn import BIG
+    q, c, masks = args[0].double(), args[1].double(), args[2:4]
+    M, N, k = q.shape[0], c.shape[0], got[0][1].shape[1]
+    differ = torch.zeros(M, dtype=torch.bool, device=q.device)
+    for s, ((d, i), mask) in enumerate(zip(got, masks)):
+        for r0 in range(0, M, rows):
+            r1 = min(M, r0 + rows)
+            dd = ((q[r0:r1, None, :] - c[None]) ** 2).sum(-1)
+            dd = torch.where(mask[None], dd, torch.inf)
+            kk = min(k + 1, N)
+            ref_d, ref_i = torch.topk(dd, kk, dim=1, largest=False)
+            pad = torch.full((r1 - r0, k + 1 - kk), torch.inf,
+                             dtype=ref_d.dtype, device=q.device)
+            ref_d, ref_i = torch.cat([ref_d, pad], 1), torch.cat(
+                [ref_i, pad.long()], 1)
+            gd, gi = d[r0:r1], i[r0:r1]
+            filled = torch.isfinite(ref_d[:, :k])
+            dist = ((q[r0:r1, None, :] - c[gi]) ** 2).sum(-1)
+            tol = KNN_REL * ref_d[:, :k]
+            lo = torch.cat([torch.full_like(ref_d[:, :1], -torch.inf),
+                            ref_d[:, :k - 1]], 1)
+            clear = (filled & (ref_d[:, :k] - lo > tol)
+                     & (ref_d[:, 1:] - ref_d[:, :k] > tol))
+            bad = (((gd < 0.5 * BIG) != filled).any(1)
+                   | (filled & ((dist - ref_d[:, :k]).abs() > tol)).any(1)
+                   | (clear & (gi != ref_i[:, :k])).any(1))
+            if bad.any():
+                r = int(bad.nonzero()[0])
+                raise RuntimeError(
+                    f"K3, list {'ab'[s]}: {int(bad.sum())} rows of "
+                    f"{r0}-{r1} disagree with the float64 brute force; row "
+                    f"{r0 + r}: {gd[r].tolist()} {gi[r].tolist()} against "
+                    f"{ref_d[r].tolist()} {ref_i[r].tolist()}")
+            differ[r0:r1] |= (filled & (gi != ref_i[:, :k])).any(1)
+    return float(differ.float().mean())
+
+
+def k3_ms(args) -> tuple:
+    """K3's ms a call on `args` by CUDA events around each of KNN_REPS
+    calls after a warm-up, with the L2 flushed before each, as
+    densification finds it: (median, least, most)."""
+    import torch
+    from dqo_map_tpu_torch.ops import knn
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=args[0].device)
+    knn.knn2_cuda(*args)
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(KNN_REPS)]
+    for start, stop in events:
+        flush.zero_()
+        start.record()
+        knn.knn2_cuda(*args)
+        stop.record()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in events)
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def knn_phase(device) -> dict:
+    """K3 at explore's densify shapes on densify's layout (the new points
+    first, outside mask_a; ~half the map unstable, ~90% of slots not
+    dead; points uniform in a 4 m room): held rank by rank to a float64
+    brute force (`knn_against_f64`) and to its plain version
+    (`knn_against_plain`, near-ties on under 1% of rows), then
+    its ms a call (`k3_ms`), the search kernel's own device time (the
+    profiler's), the plain version's ms and the bound: the pairs the masks
+    admit times KNN_OPS float operations at the FP32 peak."""
+    import torch
+    from dqo_map_tpu_torch.ops import knn
+    rng = np.random.default_rng(18)
+    c = torch.as_tensor(rng.uniform(-2.0, 2.0, (KNN_N, 3)).astype(np.float32),
+                        device=device)
+    ma = np.zeros(KNN_N, bool)
+    ma[KNN_M:] = rng.uniform(size=KNN_N - KNN_M) < 0.5
+    ma = torch.as_tensor(ma, device=device)
+    mb = torch.as_tensor(rng.uniform(size=KNN_N) < 0.9, device=device)
+    q = c[:KNN_M].clone()
+    args = (q, c, ma, mb, KNN_K)
+    launches = dict(knn.LAUNCHES)
+    got = knn.knn2(*args)
+    if knn.LAUNCHES != {k: v + 1 for k, v in launches.items()}:
+        raise RuntimeError(f"K3 launches {launches} -> {knn.LAUNCHES}, "
+                           "wanted the pack and the search once")
+    ties = knn_against_f64(args, got)
+    share = knn_against_plain(args, got, knn.knn2_ref(*args), 0.01)
+    ms, lo, hi = k3_ms(args)
+    dev_ms = device_ms(lambda: knn.knn2_cuda(*args), "knn2_kernel", 5)
+    plain_ms = time_cuda(lambda: knn.knn2_ref(*args), 3)
+    pairs = KNN_M * int((ma | mb).sum())
+    bound_ms = pairs * KNN_OPS / PEAK_F32_PER_S * 1e3
+    print(f"knn (K3): {ms:.3f} ms a call (median of {KNN_REPS}, "
+          f"{lo:.3f}-{hi:.3f}, L2 flushed), search kernel {dev_ms:.3f} ms "
+          f"device time; plain version (chunked torch.topk) {plain_ms:.1f} "
+          f"ms; bound {bound_ms:.3f} ms ({pairs} pairs x {KNN_OPS} ops); M "
+          f"{KNN_M}, N {KNN_N}, k {KNN_K}; ordered indices differ from the "
+          f"plain version's at near-ties on {share:.4%} of rows, from a "
+          f"float64 brute force's at float32 ties on {ties:.4%}; "
+          f"{card_line()}")
+    return {"name": "knn", "route": "cuda",
+            "source": "dqo_map_tpu_torch/csrc/knn.cu", "replaces": None,
+            "rows_differing": share, "rows_tied_f64": ties, "ms": ms,
+            "ms_range": [lo, hi], "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "library_ms": plain_ms}
+
+
+def knn_path_a(k3) -> dict:
+    """K3 on the main path: its launches over the densified frames (each
+    already held to one pack and one search), and the last frame's search
+    again on its own inputs, held rank by rank to a float64 brute force
+    and to the plain version, and timed as in `knn_phase`."""
+    from dqo_map_tpu_torch.ops import knn
+    tensors, rest, kw = k3["inputs"]
+    args = (*tensors, *rest)
+    got = knn.knn2(*args, **kw)
+    ties = knn_against_f64(args, got)
+    share = knn_against_plain(args, got, knn.knn2_ref(*args, **kw), None)
+    k = int(got[0][1].shape[1])
+    ms, lo, hi = k3_ms((*tensors, k))
+    M, N = tensors[0].shape[0], tensors[1].shape[0]
+    launches = sum(c["knn"] for c in k3["calls"])
+    print(f"knn (K3) on the main path: {launches} launches over "
+          f"{len(k3['calls'])} densified frames; the last frame's search "
+          f"(M {M}, N {N}, k {k}) {ms:.3f} ms a call ({lo:.3f}-{hi:.3f}, "
+          f"L2 flushed); ordered indices differ from the plain version's "
+          f"at near-ties on {share:.4%} of rows, from a float64 brute "
+          f"force's at float32 ties on {ties:.4%}")
+    return {"launches": launches, "main_path": {
+        "M": M, "N": N, "k": k, "ms": ms, "ms_range": [lo, hi],
+        "rows_differing": share, "rows_tied_f64": ties}}
 
 
 def tile_entries(tile_counts, align: int, max_chunks: int) -> dict:
@@ -2156,7 +2390,7 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    from dqo_map_tpu_torch.ops.blend_cuda import build_libraries
+    from dqo_map_tpu_torch.ops.cuda_build import build_libraries
     from dqo_map_tpu_torch.slam.pose_backend import build_library
     t0 = time.perf_counter()
     libs = build_libraries(verbose=True)
@@ -2171,10 +2405,12 @@ def main(argv=None) -> int:
     lib = build_decoder()
     print(f"built the JPEG decoder {lib.name} with g++ in "
           f"{time.perf_counter() - t0:.1f} s")
+    knn_row = knn_phase(device)
 
     rec = Recorder()
     (system, cams, infos, final, result, tail, launches, seconds, window,
-     host, passes) = run_main_path(args, device, rec)
+     host, passes, k3) = run_main_path(args, device, rec)
+    knn_row.update(knn_path_a(k3))
     m = system.mapping
     check_count_reads(infos, m)
     # the map `run()` ended with, which the keyframe path below may change
@@ -2293,7 +2529,7 @@ def main(argv=None) -> int:
     run_path_d(cams, result, seconds, card)
     nowait_phase(args, device, card)
     print(card_line())
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + [knn_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

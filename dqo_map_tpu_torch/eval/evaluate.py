@@ -131,8 +131,9 @@ def eval_pcd(points: np.ndarray, gt_points: np.ndarray,
         points = points[rng.choice(len(points), sample, replace=False)]
     if len(gt_points) > sample:
         gt_points = gt_points[rng.choice(len(gt_points), sample, replace=False)]
-    p = torch.as_tensor(np.asarray(points, np.float32), device=device)
-    g = torch.as_tensor(np.asarray(gt_points, np.float32), device=device)
+    p = torch.as_tensor(np.ascontiguousarray(points, np.float32), device=device)
+    g = torch.as_tensor(np.ascontiguousarray(gt_points, np.float32),
+                        device=device)
     d_pg, _ = knn(p, g, torch.ones(len(g), dtype=torch.bool, device=device), k=1)
     d_gp, _ = knn(g, p, torch.ones(len(p), dtype=torch.bool, device=device), k=1)
     d_pg, d_gp = torch.sqrt(d_pg), torch.sqrt(d_gp)

@@ -6,23 +6,16 @@ background) and `csrc/blend_bwd.cu` (K2, its backward), and the
 custom VJP, `blend_tiles_pallas`; the empty-tile paste is the kernels' own
 init values, written by the CTA of a tile with no entries).
 
-Each source is built with `nvcc` for `sm_90a` at first use, the two in
-parallel, into `dqo_map_tpu_torch/_build/`, and bound with ctypes. For
-tensors on the card the Function launches the kernels or raises; for
-tensors on the CPU it runs the plain versions (`blend.blend_blocks_ref`,
-`blend.blend_bwd_ref`). Each wrapper adds one to its entry of `LAUNCHES`
+Both are built at first use by `cuda_build.build_libraries`, in the
+port's one parallel nvcc, and bound with ctypes. For tensors on the card
+the Function launches the kernels or raises; for tensors on the CPU it
+runs the plain versions (`blend.blend_blocks_ref`, `blend.blend_bwd_ref`). Each wrapper adds one to its entry of `LAUNCHES`
 where it launches its kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
@@ -30,13 +23,7 @@ import torch
 from .blend import (ALPHA_MAX, ALPHA_MIN, NA, NB, NC, NF, BlendParams,
                     blend_blocks_ref, blend_bwd_ref, gather_entry_feats,
                     unpack_blocks)
-
-PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"blend_fwd": PKG / "csrc" / "blend_fwd.cu",
-           "blend_bwd": PKG / "csrc" / "blend_bwd.cu"}
-BUILD_DIR = PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+from .cuda_build import build_libraries
 
 # launches per kernel variant, counted where each wrapper launches
 LAUNCHES = dict.fromkeys(("blend_fwd", "blend_fwd_bg", "blend_bwd",
@@ -46,57 +33,6 @@ LAUNCHES = dict.fromkeys(("blend_fwd", "blend_fwd_bg", "blend_bwd",
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the blend kernels are built for "
-                           "sm_90a at first use and need the CUDA toolkit")
-    return found
-
-
-def _target(name: str) -> Path:
-    tag = hashlib.sha256(SOURCES[name].read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
-
-
-def build_libraries(verbose: bool = False) -> dict:
-    """Compile each source of `SOURCES` into `_build/` unless a library of
-    the same source and flags is already there, one nvcc per source, all
-    started together. Returns {name: path}; with `verbose`, prints what
-    `-Xptxas -v` says of each."""
-    out = {name: _target(name) for name in SOURCES}
-    todo = {name: p for name, p in out.items() if not p.exists()}
-    if not todo:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name, target in todo.items():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, str(SOURCES[name])]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.PIPE, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
-            continue
-        if verbose:
-            print(f"{name}: {err.strip()}")
-        os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
 
 
 _LIBS: dict = {}
