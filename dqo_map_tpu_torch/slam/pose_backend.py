@@ -22,6 +22,14 @@ Fusion, per frame:
 The fused pose is committed back, so the backend anchors its keyframes in
 the world frame; every `LOOP_EVERY` frames a loop is looked for, and a
 found one relaxes the keyframe chain (`pose_graph.close_loop`).
+
+Spans (`utils/trace.py`, off by default): `tracking/backend/detect` (the
+detection), `tracking/backend/match` (`ob_match_staged`: matching,
+keyframe insertion and its local BA), `tracking/backend/fuse` (the policy
+and `commit`) and `tracking/backend/loop` (`maybe_close_loop`, staged tag
+`tracker/feature_loop`); they nest in the tracker's `tracking/icp`.
+Counters: `source_counts` (frames won by each estimate), beside
+`num_keyframes`, `num_mappoints` and `loop_closures`.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import trace
 from ..utils.native import build_shared
 from .pose_graph import close_loop
 
@@ -38,6 +47,8 @@ PKG = Path(__file__).resolve().parent.parent
 SOURCE = PKG.parent / "runtime" / "orb_backend.cc"
 BUILD_DIR = PKG / "_build"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
+# the estimates that can set a tracked frame's pose (`PoseBackend.track`)
+SOURCES = ("keyframe", "features", "icp", "hold")
 
 
 def build_library() -> Path:
@@ -121,6 +132,7 @@ class PoseBackend:
         self.n_inliers_last = -1
         self.kf_inliers_last = -1
         self.source_last = "init"
+        self.source_counts = dict.fromkeys(SOURCES, 0)
         self.loop_closures = 0
         self._frame_i = 0
 
@@ -154,17 +166,18 @@ class PoseBackend:
         lift), which needs no pose: the tracker calls it while the device
         still computes the ICP pose (the ctypes call releases the GIL).
         `ingest` or `track` on the same frame then only match."""
-        gray, depth = self._frame_arrays(frame)
-        H, W = gray.shape
-        K = np.asarray(frame.K, np.float64)
-        if self._scale > 1:
-            K = K.copy() / self._scale
-            K[2, 2] = 1.0
-        self._ensure(W, H, K)
-        n = self._lib.ob_ingest_frame(
-            self._handle,
-            gray.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            depth.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        with trace.span("tracking/backend/detect"):
+            gray, depth = self._frame_arrays(frame)
+            H, W = gray.shape
+            K = np.asarray(frame.K, np.float64)
+            if self._scale > 1:
+                K = K.copy() / self._scale
+                K[2, 2] = 1.0
+            self._ensure(W, H, K)
+            n = self._lib.ob_ingest_frame(
+                self._handle,
+                gray.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                depth.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
         self._staged = frame
         return n
 
@@ -180,9 +193,10 @@ class PoseBackend:
         kf_inl = ctypes.c_int(-1)
         prior = (np.ascontiguousarray(icp_pose10, np.float64).reshape(-1)
                  if icp_pose10 is not None else None)
-        n = self._lib.ob_match_staged(
-            self._handle, _dptr(prior) if prior is not None else None,
-            _dptr(rel), _dptr(abs_p), ctypes.byref(kf_inl))
+        with trace.span("tracking/backend/match"):
+            n = self._lib.ob_match_staged(
+                self._handle, _dptr(prior) if prior is not None else None,
+                _dptr(rel), _dptr(abs_p), ctypes.byref(kf_inl))
         self.rel = rel.reshape(4, 4)
         self.abs_pose = abs_p.reshape(4, 4)
         self.n_inliers_last = n
@@ -227,36 +241,40 @@ class PoseBackend:
         icp_ok = self.use_icp and icp_success and icp_pose10 is not None
         n = self.ingest(frame, icp_pose10 if (self.use_icp and icp_success)
                         else None)
-        last = self.poses[-1] if self.poses else np.eye(4)
-        # the composed relative estimate: the keyframe gate's yardstick
-        if n >= self.MIN_INLIERS:
-            est = last @ self.rel
-        elif icp_ok:
-            est = last @ np.asarray(icp_pose10, np.float64)
-        else:
-            est = None
-        if self.kf_inliers_last >= self.MIN_KF_INLIERS and (
-                est is None or self.source_last == "hold"
-                or self._kf_agrees(est)):
-            if est is None or self.source_last == "hold":
-                pose_w = self.abs_pose
+        with trace.span("tracking/backend/fuse"):
+            last = self.poses[-1] if self.poses else np.eye(4)
+            # the composed relative estimate: the keyframe gate's yardstick
+            if n >= self.MIN_INLIERS:
+                est = last @ self.rel
+            elif icp_ok:
+                est = last @ np.asarray(icp_pose10, np.float64)
             else:
-                pose_w = self._nudge(est, self.abs_pose, self.KF_GAIN)
-            self.source_last = "keyframe"
-        elif n >= self.MIN_INLIERS:
-            pose_w = last @ self.rel
-            self.source_last = "features"
-        elif icp_ok:
-            pose_w = last @ np.asarray(icp_pose10, np.float64)
-            self.source_last = "icp"
-        else:
-            pose_w = last.copy()
-            self.source_last = "hold"
-        self.poses.append(pose_w)
-        self.commit(pose_w)
+                est = None
+            if self.kf_inliers_last >= self.MIN_KF_INLIERS and (
+                    est is None or self.source_last == "hold"
+                    or self._kf_agrees(est)):
+                if est is None or self.source_last == "hold":
+                    pose_w = self.abs_pose
+                else:
+                    pose_w = self._nudge(est, self.abs_pose, self.KF_GAIN)
+                self.source_last = "keyframe"
+            elif n >= self.MIN_INLIERS:
+                pose_w = last @ self.rel
+                self.source_last = "features"
+            elif icp_ok:
+                pose_w = last @ np.asarray(icp_pose10, np.float64)
+                self.source_last = "icp"
+            else:
+                pose_w = last.copy()
+                self.source_last = "hold"
+            self.poses.append(pose_w)
+            self.commit(pose_w)
+            self.source_counts[self.source_last] += 1
         self._frame_i += 1
         if self.use_loop_closing and self._frame_i % self.LOOP_EVERY == 0:
-            self.maybe_close_loop()
+            with trace.span("tracking/backend/loop", tag="tracker/feature_loop",
+                            wait_end=False):
+                self.maybe_close_loop()
         return self.poses[-1]
 
     # -- loop closing -------------------------------------------------------

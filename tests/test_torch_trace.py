@@ -1,13 +1,16 @@
 """The port's span recorder (`dqo_map_tpu_torch/utils/trace.py`) on the
 CPU.
 
-Two runs of `SLAMSystem.step` over four synthetic frames at 64x48 with
-3 Adam steps on every 2nd frame (so local scans, the keyframe scan and the
-model renders all run): `FEATURES` with the feature backend in loose
-sync, frame 3 a keyframe, as the stage-tag test runs it, and `OBJECTS`
+Runs of `SLAMSystem.step` over synthetic frames at 64x48 with 3 Adam
+steps on every 2nd frame (so local scans, the keyframe scan and the model
+renders all run): `FEATURES`, four frames with the feature backend in
+loose sync every 2nd frame, frame 3 a keyframe; `OBJECTS`, four frames
 with ICP alone in strict sync and the MODE=1 object layer, as the
-benchmark's office0 cell runs it, frames 1 and 3 keyframes (frame 1's
-refines an object seen twice). The recorder is checked in its three states:
+benchmark's office0-explore cell runs it, frames 1 and 3 keyframes (frame
+1's refines an object seen twice); and `ORB_LOOSE`, seven frames with the
+feature backend, loose sync every 6th frame and the object layer, as the
+benchmark's office0-orb-loose cell runs it (its loop search on frame 5).
+The recorder is checked in its three states:
 
 - off: nothing is recorded and `torch.profiler.record_function` is never
   called (it raises here);
@@ -15,7 +18,9 @@ refines an object seen twice). The recorder is checked in its three states:
   in its frame's `system/step#<frame id>` span, `scans/step` and its three
   phases appear once per Adam step of every scan, each scan has its
   `prepare`, every host-read site on the path has its `/wait` span, and
-  an op enters its wait span once for each of its reads;
+  an op enters its wait span once for each of its reads; the feature
+  backend's four spans nest in the tracker's span, and loose sync waits
+  only at the end of every `sync_tracker2mapper_frames`-th frame;
 - staged: the JAX tags, each recorded as often as the Mapping's own
   counts say, and the three staged readings (densification's KNN, the
   keyframe scan with its steps, the object refinement), and no reading of
@@ -45,8 +50,15 @@ FEATURES = dict(BASE, use_orb_backend=True, use_object=False,
                 sync_tracker2mapper_frames=2)
 OBJECTS = dict(BASE, use_orb_backend=False, use_object=True,
                sync_tracker2mapper_method="strict", keyframe_theta_thes=1.0)
-RUNS = {"features": FEATURES, "objects": OBJECTS}
-KEYFRAMES = {"features": [0, 3], "objects": [0, 1, 3]}
+ORB_LOOSE = dict(BASE, use_orb_backend=True, use_object=True,
+                 sync_tracker2mapper_method="loose",
+                 sync_tracker2mapper_frames=6, keyframe_theta_thes=1.0)
+RUNS = {"features": FEATURES, "objects": OBJECTS, "orb_loose": ORB_LOOSE}
+N_FRAMES = {"features": FRAMES, "objects": FRAMES, "orb_loose": 7}
+KEYFRAMES = {"features": [0, 3], "objects": [0, 1, 3],
+             "orb_loose": [0, 1, 3, 5]}
+BACKEND_SPANS = ("tracking/backend/detect", "tracking/backend/match",
+                 "tracking/backend/fuse", "tracking/backend/loop")
 PREFIXES = ("tracking", "mapping", "scans", "render", "objects")
 
 # the wait spans of the host-read sites each run's frames pass through:
@@ -59,13 +71,15 @@ WAITS_BOTH = {
     "scans/keyframe/prepare/gather/wait",
     "scans/keyframe/prepare/touched/wait",
     "scans/keyframe/prepare/tiles/wait", "tracking/pose/upload/wait"}
+WAITS_OBJECTS = {"mapping/obj_ids/wait", "objects/upload/wait",
+                 "refine_objects/wait", "project_bbox/wait",
+                 "objects/readback/wait"}
 WAITS = {
     "features": WAITS_BOTH | {"tracking/icp/readback/wait"},
-    "objects": WAITS_BOTH | {
+    "objects": WAITS_BOTH | WAITS_OBJECTS | {
         "tracking/sync/wait", "tracking/icp/residual/wait",
-        "tracking/pose/wait", "mapping/obj_ids/wait",
-        "objects/upload/wait", "refine_objects/wait",
-        "project_bbox/wait", "objects/readback/wait"},
+        "tracking/pose/wait"},
+    "orb_loose": WAITS_BOTH | WAITS_OBJECTS | {"tracking/icp/readback/wait"},
 }
 
 
@@ -89,8 +103,8 @@ def recorder_off():
 
 
 def _run(name, save_path) -> SLAMSystem:
-    _, cams = synthetic_sequence(FRAMES, width=W, height=H,
-                                 with_detections=name == "objects")
+    _, cams = synthetic_sequence(N_FRAMES[name], width=W, height=H,
+                                 with_detections=RUNS[name]["use_object"])
     system = SLAMSystem(default_config(save_path=str(save_path), **RUNS[name]),
                         cameras=cams, device="cpu")
     for i, cam in enumerate(cams):
@@ -136,10 +150,10 @@ def traced(request, tmp_path_factory, one_thread):
 
 
 def test_on_every_span_nests_in_its_frame(traced):
-    _, _, spans = traced
+    name, _, spans = traced
     frames = [s for s in spans if s[0].startswith("system/step#")]
     assert sorted(int(n.split("#")[1]) for n, _, _ in frames) == list(
-        range(FRAMES))
+        range(N_FRAMES[name]))
     frames.sort(key=lambda s: s[1])
     assert all(a[2] <= b[1] for a, b in zip(frames, frames[1:]))
     program = [s for s in spans if s[0].split("/")[0] in PREFIXES
@@ -147,6 +161,56 @@ def test_on_every_span_nests_in_its_frame(traced):
     assert len(program) > 100
     for name, s, e in program:
         assert any(fs <= s and e <= fe for _, fs, fe in frames), name
+
+
+def _frame_of(spans, s, e):
+    """The id of the frame whose span holds [s, e]."""
+    for n, fs, fe in spans:
+        if n.startswith("system/step#") and fs <= s and e <= fe:
+            return int(n.split("#")[1])
+    raise AssertionError("outside every frame")
+
+
+def test_on_backend_spans_nest_in_tracking(traced):
+    name, system, spans = traced
+    got = {b: [(s, e) for n, s, e in spans if n == b] for b in BACKEND_SPANS}
+    be = system.tracker.pose_backend
+    if be is None:
+        assert not any(got.values())
+        return
+    n = N_FRAMES[name]
+    # detection and matching on every frame (frame 0 primes the feature
+    # tracker), the policy on every tracked frame, the loop search on every
+    # LOOP_EVERY-th tracked frame
+    assert len(got["tracking/backend/detect"]) == n
+    assert len(got["tracking/backend/match"]) == n
+    assert len(got["tracking/backend/fuse"]) == n - 1 == sum(
+        be.source_counts.values())
+    assert [_frame_of(spans, s, e) for s, e in got["tracking/backend/loop"]
+            ] == list(range(be.LOOP_EVERY, n, be.LOOP_EVERY))
+    tracking = [(s, e) for n_, s, e in spans if n_ == "tracking/icp"]
+    for b, ivs in got.items():
+        for s, e in ivs:
+            assert any(a <= s and e <= z for a, z in tracking), b
+
+
+def test_on_sync_waits_follow_the_mode(traced):
+    """strict waits at the end of tracking and of mapping on every frame;
+    loose only at the end of every `sync_tracker2mapper_frames`-th."""
+    name, _, spans = traced
+    n, cfg = N_FRAMES[name], RUNS[name]
+
+    def frames_with(wait):
+        return sorted(_frame_of(spans, s, e) for w, s, e in spans if w == wait)
+
+    if cfg["sync_tracker2mapper_method"] == "strict":
+        assert frames_with("mapping/sync/wait") == list(range(n))
+        assert frames_with("tracking/sync/wait") == list(range(n))
+    else:
+        k = cfg["sync_tracker2mapper_frames"]
+        assert frames_with("mapping/sync/wait") == [
+            i for i in range(n) if (i + 1) % k == 0]
+        assert frames_with("tracking/sync/wait") == []
 
 
 def test_on_a_step_span_per_adam_step(traced):
@@ -183,7 +247,7 @@ def test_on_every_host_read_site_has_its_wait_span(traced):
     assert WAITS[name] <= waits, sorted(WAITS[name] - waits)
     # each binning reads its layout size once, in its own span
     binnings = sum(n == "bin_gaussians/wait" for n, _, _ in spans)
-    assert binnings >= FRAMES
+    assert binnings >= N_FRAMES[name]
     # a wait span holds no span of its own
     for n, s, e in spans:
         if n.endswith("/wait"):
@@ -274,6 +338,39 @@ def test_staged_tags_and_readings(tmp_path, one_thread):
     assert len(readings["objects/refine"]) >= 1
     assert all(r["ms"] >= 0 for v in readings.values() for r in v)
     assert trace.stage_times() == {} and trace.span_readings() == {}
+
+
+@pytest.mark.parametrize("name", BACKEND_SPANS)
+def test_off_backend_span_is_one_flag_test(name):
+    assert trace.span(name, tag="tracker/feature_loop",
+                      wait_end=False) is trace._NULL
+    trace.profile_enable(True)
+    try:
+        # staged, a span without a tag records nothing either
+        assert trace.span(name) is trace._NULL
+    finally:
+        trace.profile_enable(False)
+
+
+def test_staged_backend_tags(tmp_path, one_thread):
+    """The feature backend's stages, staged: detection, the pose readback
+    and the fusion on every tracked frame, the loop search on every
+    LOOP_EVERY-th, and no tag or reading of its named spans."""
+    trace.profile_enable(True)
+    try:
+        system = _run("orb_loose", tmp_path)
+    finally:
+        trace.profile_enable(False)
+    tags = {k: len(v) for k, v in trace.stage_times(reset=True).items()}
+    n, be = N_FRAMES["orb_loose"], system.tracker.pose_backend
+    assert tags["tracker"] == n
+    for t in ("tracker/feature_detect", "tracker/pose_sync",
+              "tracker/feature_backend"):
+        assert tags[t] == n - 1, t
+    assert tags["tracker/feature_loop"] == (n - 1) // be.LOOP_EVERY
+    assert not any(t.startswith("tracking/") for t in tags)
+    assert not any(r.startswith("tracking/")
+                   for r in trace.span_readings(reset=True))
 
 
 def test_staged_spans_wait_only_where_their_reading_needs_it(monkeypatch):

@@ -5,9 +5,11 @@ that counting the wait spans entered counts the host's waits on the card
 that the CUDA sync debug mode sees.
 
 Six frames at 160x120 with 3 Adam steps on every 2nd frame, a keyframe
-scan among them, in the benchmark's two configurations: ICP alone in
-strict sync with the MODE=1 object layer (office0's), and ICP against the
-model depth with the depth filter (fr1_desk's). They run with the
+scan among them, in the benchmark's three configurations: ICP alone in
+strict sync with the MODE=1 object layer (office0-explore's), ICP against
+the model depth with the depth filter (fr1_desk's), and the feature
+backend in loose sync every 6th frame with the object layer
+(office0-orb-loose's: one readback of ICP's pose a tracked frame). They run with the
 recorder on and under `torch.cuda.set_sync_debug_mode("warn")`; each of
 the mode's warnings is caught with the spans open when it was raised (the
 recorder's `record_function` wrapped to keep them, each entry numbered),
@@ -44,6 +46,9 @@ RUNS = {
     "objects": dict(BASE, use_object=True, icp_use_model_depth=False),
     "model_depth": dict(BASE, use_object=False, icp_use_model_depth=True,
                         depth_filter=True),
+    "orb_loose": dict(BASE, use_object=True, icp_use_model_depth=False,
+                      use_orb_backend=True, sync_tracker2mapper_method="loose",
+                      sync_tracker2mapper_frames=6),
 }
 
 
@@ -64,7 +69,7 @@ def test_every_synchronising_call_is_in_a_wait_span(cuda_device, run,
     from dqo_map_tpu_torch.slam.system import SLAMSystem
     from dqo_map_tpu_torch.utils import trace
     _, cams = synthetic_sequence(FRAMES, width=160, height=120,
-                                 with_detections=run == "objects")
+                                 with_detections=RUNS[run]["use_object"])
     system = SLAMSystem(default_config(save_path=str(tmp_path), **RUNS[run]),
                         cameras=cams, device=cuda_device)
     census, per_entry = collections.Counter(), collections.Counter()
@@ -128,3 +133,6 @@ def test_every_synchronising_call_is_in_a_wait_span(cuda_device, run,
     assert census["bin_gaussians/wait"] >= FRAMES - 1
     if run == "objects":
         assert census["objects/readback/wait"] >= 3
+    if run == "orb_loose":
+        # the backend's host work reads nothing of the card but the pose
+        assert census["tracking/icp/readback/wait"] == FRAMES - 1
