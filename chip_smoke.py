@@ -405,12 +405,14 @@ def check_launches(what: str, got: dict, scans0: dict, scans1: dict,
     """K1 once per model render, scan iteration, semantic pass (one an
     iteration where the frames carry semantics), background render (colour
     and semantic), range render, colour pass and MODE=0 object iteration;
-    K2 once per scan iteration, semantic pass and object iteration."""
+    K2 once per scan iteration, semantic pass and object iteration. The
+    host launches a graphed scan step's blends once, at its capture: its
+    replays launch them on the card alone (`replayed_blends`)."""
     d = {k: scans1[k] - scans0[k] for k in scans1}
     # a scan's blends with gradient: one an iteration, two with the
     # semantic pass, one a live keyframe slot an iteration when
     # data-parallel
-    want_bwd = d["blends"] + obj_iters
+    want_bwd = d["blends"] - d["replayed_blends"] + obj_iters
     want_fwd = (renders + want_bwd + d["bg_renders"] + d["sem_bg_renders"]
                 + d["range_renders"] + color_passes)
     fwd = got["blend_fwd"] + got["blend_fwd_bg"]
@@ -1678,13 +1680,17 @@ def run_path_b(args, device, rec):
         obj["with_objects"] += n > 0
         return n
 
-    # each scan's weighted instance curve, which no gradient reaches
-    inner_count, untrained = m._count_scan, []
+    # each scan's weighted instance curve, which no gradient reaches, and
+    # the local scans' steps that replayed a graph (no host launch)
+    inner_count, untrained, local_replayed = m._count_scan, [], [0]
 
     def count_scan(kind, reports):
         if reports["iters"]:
             untrained.append(float(m.opt.instance_weight)
                              * reports["instance_loss"])
+        if kind == "local":
+            local_replayed[0] += (reports.get("graph_replays", 0)
+                                  - reports.get("graph_captures", 0))
         return inner_count(kind, reports)
 
     inner_step, infos = system.step, []
@@ -1730,7 +1736,10 @@ def run_path_b(args, device, rec):
                            f" of {sc['iters']} iterations and "
                            f"{sc['sem_bg_renders']} semantic backgrounds for "
                            f"{sc['bg_renders']}")
-    local_iters = sum(len(c) for kind, c in m.scan_log if kind == "local")
+    # the host launches a local scan step's semantic pass unless the step
+    # replayed its frame's graph
+    local_iters = sum(len(c) for kind, c in m.scan_log
+                      if kind == "local") - local_replayed[0]
     want = {"blend_fwd_sem": local_iters, "blend_bwd_sem": local_iters,
             "blend_fwd_obj": obj_iters, "blend_bwd_obj": obj_iters}
     got = {k: rec.tagged.get(k, 0) for k in want}

@@ -30,7 +30,12 @@ schedule, its loss and the update:
 Every frame is binned once at scan entry and blended from the current
 parameters with those tile lists. The compact scans compute their loss on
 the kernels' tile rows, where the padded edge pixels are outside the
-render mask: the same masked means as in image space. With
+render mask: the same masked means as in image space. Within a compact
+scan a frame's gradient is thus one fixed chain of kernels, and on a card
+it runs as a CUDA graph (`GradsGraph`), captured at the frame's first
+draw and replayed at its later ones (`capture_plan`); the masked Adam
+step and the confidence update stay eager. The other scans, and every
+scan on the CPU, run the gradient eagerly. With
 `gaussian_update_iter=0` no per-frame scan runs. `save_model` writes the
 map as PLY files. `mapping` drives the object layer where the run has
 one: in MODE=1 the box refinement on keyframes, in MODE=0 the render
@@ -57,6 +62,9 @@ system's and the tracker's stages under the JAX package's tags.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import gc
 import math
 import os
 import sys
@@ -251,6 +259,123 @@ def _grads(sub: MapState, params: dict, loss_of):
                     for k, g in zip(OPT_FIELDS, grads)}
 
 
+@contextlib.contextmanager
+def _no_gc():
+    """The garbage collector off inside, as it was after."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
+EAGER, CAPTURE, REPLAY = "eager", "capture", "replay"
+# a scan's counters: every step runs eagerly or replays its frame's graph
+GRAPH_COUNTERS = ("graph_captures", "graph_replays", "eager_steps")
+
+
+def capture_plan(rand_idx) -> list:
+    """What each step of a graphed scan does with its frame `rand_idx[it]`:
+    a frame drawn once runs eagerly (`EAGER`); a frame drawn more often is
+    captured at its first draw (`CAPTURE`, the step then replaying it) and
+    replayed at every later draw (`REPLAY`)."""
+    frames = [int(f) for f in rand_idx]
+    draws = collections.Counter(frames)
+    plan, captured = [], set()
+    for f in frames:
+        if draws[f] < 2:
+            plan.append(EAGER)
+        elif f in captured:
+            plan.append(REPLAY)
+        else:
+            captured.add(f)
+            plan.append(CAPTURE)
+    return plan
+
+
+class GradsGraph:
+    """`_grads` at one frame of a scan as one CUDA graph: the forward render
+    through K1, the loss and its backward through K2 and autograd's gathers,
+    about 1,400 kernels a step that the host otherwise launches one by one.
+    It is captured over static copies of the `OPT_FIELDS` leaves, on
+    `stream` into the scan's memory pool `pool`; the frame's binning,
+    background, targets and the gathered rows are fixed for the scan and
+    read in place. A call copies the current parameters in, replays, and
+    returns the report and the gradients cloned, so that a later replay
+    (of this frame's graph or, through the shared pool, another's) cannot
+    overwrite them. The garbage collector is off while it captures: the
+    destructors of what it collected there (older graphs, events, pinned
+    host memory) call into CUDA and invalidate the capture. A capture that
+    fails raises."""
+
+    def __init__(self, sub: MapState, params: dict, loss_of, pool, stream):
+        self._params = {k: v.detach().clone() for k, v in params.items()}
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        self._graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream), _no_gc():
+            self._graph.capture_begin(pool=pool)
+            try:
+                self._report, self._grads = _grads(sub, self._params,
+                                                   loss_of)
+            except BaseException:
+                # end the capture, but raise what broke it
+                try:
+                    self._graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            self._graph.capture_end()
+
+    def __call__(self, params: dict):
+        """(report, gradients) of `_grads` at `params`."""
+        for k, v in self._params.items():
+            v.copy_(params[k])
+        self._graph.replay()
+        return ({k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in self._report.items()},
+                {k: g.clone() for k, g in self._grads.items()})
+
+
+class ScanGrads:
+    """A scan's `value_and_grad(params, it)` for `_adam_scan`: `_grads` at
+    frame `rand_idx[it]`, eagerly, or with `graphed` by the frame's
+    `GradsGraph` as `capture_plan` says. The graphs share one memory pool
+    and one side stream, and go with this object when the scan returns.
+    `counts` holds the scan's `GRAPH_COUNTERS`."""
+
+    def __init__(self, sub: MapState, loss_of, rand_idx, graphed: bool):
+        self.sub, self.loss_of = sub, loss_of
+        self.frames = [int(f) for f in rand_idx]
+        self.plan = (capture_plan(self.frames) if graphed
+                     else [EAGER] * len(self.frames))
+        self._graphs: dict = {}
+        self.counts = dict.fromkeys(GRAPH_COUNTERS, 0)
+        self._pool = self._stream = None
+        if CAPTURE in self.plan:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(sub.device)
+
+    def __call__(self, params: dict, it: int):
+        f, action = self.frames[it], self.plan[it]
+
+        def loss_at(st, p):
+            return self.loss_of(st, f, p)
+
+        if action == EAGER:
+            self.counts["eager_steps"] += 1
+            return _grads(self.sub, params, loss_at)
+        if action == CAPTURE:
+            with trace.span("scans/step/capture"):
+                self._graphs[f] = GradsGraph(self.sub, params, loss_at,
+                                            self._pool, self._stream)
+            self.counts["graph_captures"] += 1
+        self.counts["graph_replays"] += 1
+        with trace.span("scans/step/replay"):
+            return self._graphs[f](params)
+
+
 def _adam_scan(sub: MapState, iters: int, lrs: dict, opt_mask,
                value_and_grad):
     """`iters` masked Adam steps on the parameters of `sub`; step `it`
@@ -275,6 +400,13 @@ def _adam_scan(sub: MapState, iters: int, lrs: dict, opt_mask,
     curves = {k: torch.stack([r[k] for r in reports]) for k in reports[0]} \
         if reports else {}
     return params, confidence, curves
+
+
+def _count_steps(reports: dict, iters: int, grads: ScanGrads):
+    """A scan's `GRAPH_COUNTERS` into its report, and with its steps onto
+    the open staged spans (`trace.count`)."""
+    reports.update(grads.counts)
+    trace.count(steps=iters, **grads.counts)
 
 
 def _receipts(reports: dict, binnings: list, iters: int):
@@ -310,9 +442,9 @@ def optimize_scan(state: MapState, frames: dict, rand_idx, lrs: dict,
     loss_of, binnings = image_loss(sub, frames, settings, subset,
                                    with_tile_mask, opt_mask, weights,
                                    add_depth_thres, use_ssim)
-    params, confidence, reports = _adam_scan(
-        sub, iters, lrs, opt_mask, lambda params, it: _grads(
-            sub, params, lambda st, p: loss_of(st, int(rand_idx[it]), p)))
+    grads = ScanGrads(sub, loss_of, rand_idx, graphed=False)
+    params, confidence, reports = _adam_scan(sub, iters, lrs, opt_mask, grads)
+    _count_steps(reports, iters, grads)
     with_sem = "semantics_color" in frames
     reports = _receipts(reports, binnings, iters)
     reports["sem_iters"] = iters if with_sem else 0
@@ -478,9 +610,11 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
     if sub.count == 0:
         reports = {}
     else:
-        params, confidence, reports = _adam_scan(
-            sub, iters, lrs, valid_u, lambda params, it: _grads(
-                sub, params, lambda st, p: loss_of(st, int(rand_idx[it]), p)))
+        # on a card each frame's step is one CUDA graph (`GradsGraph`)
+        grads = ScanGrads(sub, loss_of, rand_idx, graphed=sub.xyz.is_cuda)
+        params, confidence, reports = _adam_scan(sub, iters, lrs, valid_u,
+                                                 grads)
+        _count_steps(reports, iters, grads)
         new = {}
         for k in OPT_FIELDS:
             new[k] = getattr(state, k).clone()
@@ -493,6 +627,10 @@ def compact_optimize_scan(state: MapState, row_mask: torch.Tensor,
     reports["sem_bg_renders"] = len(bgts_sem)
     reports["sem_iters"] = reports["iters"] if with_semantics else 0
     reports["blends"] = reports["iters"] * (2 if with_semantics else 1)
+    # the blends a graph replay launches, which the host does not
+    reports["replayed_blends"] = (reports.get("graph_replays", 0)
+                                  - reports.get("graph_captures", 0)) * (
+                                      2 if with_semantics else 1)
     return state, reports
 
 
@@ -821,12 +959,14 @@ class Mapping:
         self.receipts = dict.fromkeys(RECEIPTS, 0)   # max over the renders
         self.renders = 0
         # scans run (local, keyframe, final pass), their Adam steps (those
-        # with the semantic pass apart), and the renders they make besides
-        # the steps' own: stable backgrounds (colour and semantic) and
-        # keyframe range renders
+        # with the semantic pass apart), their blends (those a graph replay
+        # launched apart), the renders they make besides the steps' own:
+        # stable backgrounds (colour and semantic) and keyframe range
+        # renders, and how the steps ran (`GRAPH_COUNTERS`)
         self.scan_counts = dict.fromkeys(
             ("local", "global", "final", "iters", "sem_iters", "blends",
-             "bg_renders", "sem_bg_renders", "range_renders"), 0)
+             "replayed_blends", "bg_renders", "sem_bg_renders",
+             "range_renders") + GRAPH_COUNTERS, 0)
         # (kind, (iters,) objective curve) of every scan run
         self.scan_log: list = []
         self._warned_dropped = False
@@ -1049,7 +1189,8 @@ class Mapping:
     def _count_scan(self, kind: str, reports: dict):
         self.scan_counts[kind] += 1
         self.scan_counts["iters"] += reports["iters"]
-        for k in ("sem_iters", "blends", "bg_renders", "sem_bg_renders"):
+        for k in ("sem_iters", "blends", "bg_renders", "sem_bg_renders",
+                  "replayed_blends") + GRAPH_COUNTERS:
             self.scan_counts[k] += reports.get(k, 0)
         self.receipts["tile_dropped"] = max(self.receipts["tile_dropped"],
                                             reports["tile_dropped"])
@@ -1186,7 +1327,7 @@ class Mapping:
                     touched = int(mask.sum())
             if touched == 0:
                 return
-            with trace.span("scans/keyframe/scan", staged=True, steps=iters):
+            with trace.span("scans/keyframe/scan", staged=True):
                 self.state, reports = compact_optimize_scan(
                     self.state, mask, frames, rand_idx, lrs, weights,
                     self.settings, self.settings, iters, a.add_depth_thres,
@@ -1233,10 +1374,10 @@ class Mapping:
             is_keyframe = self.check_keyframe(frame, frame_map, frame_id)
             if int(self.args.gaussian_update_iter) > 0:
                 if not is_keyframe or self.counts()[1] <= 0:
-                    with trace.span("scans/local"):
+                    with trace.span("scans/local", staged=True):
                         self.local_optimize(frame)
                 else:
-                    with trace.span("scans/keyframe",
+                    with trace.span("scans/keyframe", staged=True,
                                     tag="global_optimization"):
                         self.global_optimization(self.args.global_keyframe_num)
             if (object_layer is not None and (is_keyframe or frame_id == 0)

@@ -19,11 +19,13 @@ The recorder is in one of three states:
   timers. A span with a `tag` (the JAX package's stage tags) waits for the
   card at its end (unless `wait_end=False`) and records its ms since its
   start under the tag (`stage_times`); a `staged` span waits for the card
-  at its start and its end and records its ms and its `steps` under its
-  name (`span_readings`). Every other span, the per-step and wait spans
-  among them, records nothing and never waits. With the card waited for,
-  the host no longer runs ahead of it: staged times give the split of a
-  frame, not its time.
+  at its start and its end and records its ms and its counters under its
+  name (`span_readings`): `steps` where given, and what `count` adds
+  while it is open (the scans' steps and `graph_captures`,
+  `graph_replays`, `eager_steps`). Every other span, the per-step and
+  wait spans among them, records nothing and never waits. With the card
+  waited for, the host no longer runs ahead of it: staged times give the
+  split of a frame, not its time.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ OFF, ON, STAGED = "off", "on", "staged"
 
 _mode = STAGED if os.environ.get("DQO_PROFILE") else OFF
 _stages: dict = {}          # JAX tag -> [ms], staged
-_readings: dict = {}        # staged span name -> [{"ms": .., "steps": ..}]
+_readings: dict = {}        # staged span name -> [{"ms": .., counters}]
+_open: list = []            # the staged spans open now, outermost first
 
 
 class _Null:
@@ -63,11 +66,12 @@ def _sync():
 
 
 class _Span:
-    __slots__ = ("name", "tag", "staged", "wait_end", "steps", "t0", "rf")
+    __slots__ = ("name", "tag", "staged", "wait_end", "counters", "t0", "rf")
 
     def __init__(self, name, tag, staged, wait_end, steps):
         self.name, self.tag, self.staged = name, tag, staged
-        self.wait_end, self.steps = wait_end, steps
+        self.wait_end = wait_end
+        self.counters = {} if steps is None else {"steps": steps}
         self.rf = self.t0 = None
 
     def __enter__(self):
@@ -78,6 +82,7 @@ class _Span:
         else:
             if self.staged:
                 _sync()
+                _open.append(self)
             self.t0 = time.perf_counter()
         return self
 
@@ -85,16 +90,18 @@ class _Span:
         if self.rf is not None:
             self.rf.__exit__(*exc)
             self.rf = None
-        elif _mode == STAGED and self.t0 is not None:
+            return False
+        if self in _open:
+            _open.remove(self)
+        if _mode == STAGED and self.t0 is not None:
             if self.staged or self.wait_end:
                 _sync()
             ms = (time.perf_counter() - self.t0) * 1000
             if self.tag is not None:
                 _stages.setdefault(self.tag, []).append(ms)
             if self.staged:
-                r = {"ms": ms} if self.steps is None else {
-                    "ms": ms, "steps": self.steps}
-                _readings.setdefault(self.name, []).append(r)
+                _readings.setdefault(self.name, []).append(
+                    {"ms": ms, **self.counters})
         return False
 
 
@@ -102,12 +109,20 @@ def span(name=None, tag=None, staged=False, wait_end=True, steps=None):
     """The span `name` (None: a stage tag alone, no span when on). `tag`:
     the JAX stage tag it records under when staged, after waiting for the
     card unless `wait_end` is False; `staged`: a staged reading of its own,
-    with `steps` as its counter."""
+    with `steps` as its first counter (`count` adds more)."""
     if _mode == OFF:
         return _NULL
     if _mode == STAGED and tag is None and not staged:
         return _NULL
     return _Span(name, tag, staged, wait_end, steps)
+
+
+def count(**counters):
+    """Add `counters` (name: number) to the reading of every staged span
+    open now; nothing unless staged."""
+    for s in _open:
+        for k, v in counters.items():
+            s.counters[k] = s.counters.get(k, 0) + v
 
 
 def frame(frame_id: int):
@@ -140,8 +155,9 @@ def stage_times(reset: bool = False) -> dict:
 
 
 def span_readings(reset: bool = False) -> dict:
-    """{staged span name: [{"ms": .., "steps": ..}, ...]} recorded while
-    staged since the last reset (`steps` where the span counts them)."""
+    """{staged span name: [{"ms": .., counter: .., ...}, ...]} recorded
+    while staged since the last reset (the counters where the span has
+    them)."""
     global _readings
     out = {k: [dict(r) for r in v] for k, v in _readings.items()}
     if reset:

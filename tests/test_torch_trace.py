@@ -22,9 +22,9 @@ The recorder is checked in its three states:
   backend's four spans nest in the tracker's span, and loose sync waits
   only at the end of every `sync_tracker2mapper_frames`-th frame;
 - staged: the JAX tags, each recorded as often as the Mapping's own
-  counts say, and the three staged readings (densification's KNN, the
-  keyframe scan with its steps, the object refinement), and no reading of
-  a step or wait span.
+  counts say, and the staged readings (densification's KNN, both scans
+  and the keyframe scan's steps, each with its steps and how they ran,
+  the object refinement), and no reading of a step or wait span.
 """
 
 import json
@@ -330,14 +330,46 @@ def test_staged_tags_and_readings(tmp_path, one_thread):
     assert not any(t.startswith(("scans/", "tracking/", "objects/"))
                    or t.endswith("/wait") for t in tags)
     readings = trace.span_readings(reset=True)
-    assert set(readings) == {"mapping/add/densify/knn", "scans/keyframe/scan",
+    assert set(readings) == {"mapping/add/densify/knn", "scans/local",
+                             "scans/keyframe", "scans/keyframe/scan",
                              "objects/refine"}
     assert len(readings["mapping/add/densify/knn"]) == FRAMES
-    assert [r["steps"] for r in readings["scans/keyframe/scan"]] == [
-        ITERS] * m.scan_counts["global"]
+    # each scan's steps and how they ran: on the CPU every one eagerly
+    for name, kind in (("scans/local", "local"), ("scans/keyframe", "global"),
+                       ("scans/keyframe/scan", "global")):
+        assert readings[name] == [
+            {"ms": r["ms"], "steps": ITERS, "eager_steps": ITERS,
+             "graph_captures": 0, "graph_replays": 0}
+            for r in readings[name]], name
+        assert len(readings[name]) == m.scan_counts[kind], name
     assert len(readings["objects/refine"]) >= 1
     assert all(r["ms"] >= 0 for v in readings.values() for r in v)
     assert trace.stage_times() == {} and trace.span_readings() == {}
+
+
+def test_count_adds_to_every_open_staged_span():
+    trace.count(steps=1)                    # off: nothing to add to
+    trace.profile_enable(True)
+    try:
+        with trace.span("scans/keyframe", staged=True, steps=2):
+            with trace.span("scans/step"):  # no reading of its own
+                with trace.span("scans/keyframe/scan", staged=True):
+                    trace.count(steps=3, graph_replays=1)
+            trace.count(graph_replays=2)
+        trace.count(steps=5)                # no staged span open
+    finally:
+        trace.profile_enable(False)
+    got = {k: [{c: n for c, n in r.items() if c != "ms"} for r in v]
+           for k, v in trace.span_readings(reset=True).items()}
+    assert got == {"scans/keyframe": [{"steps": 5, "graph_replays": 3}],
+                   "scans/keyframe/scan": [{"steps": 3, "graph_replays": 1}]}
+    trace.enable(True)
+    try:
+        with trace.span("scans/local", staged=True):
+            trace.count(steps=1)            # on: the trace holds the spans
+    finally:
+        trace.enable(False)
+    assert trace.span_readings() == {}
 
 
 @pytest.mark.parametrize("name", BACKEND_SPANS)

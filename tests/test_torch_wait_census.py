@@ -9,11 +9,14 @@ scan among them, in the benchmark's three configurations: ICP alone in
 strict sync with the MODE=1 object layer (office0-explore's), ICP against
 the model depth with the depth filter (fr1_desk's), and the feature
 backend in loose sync every 6th frame with the object layer
-(office0-orb-loose's: one readback of ICP's pose a tracked frame). They run with the
-recorder on and under `torch.cuda.set_sync_debug_mode("warn")`; each of
-the mode's warnings is caught with the spans open when it was raised (the
-recorder's `record_function` wrapped to keep them, each entry numbered),
-and the innermost must be a wait span that has not yet seen one. The
+(office0-orb-loose's: one readback of ICP's pose a tracked frame); and
+office0-explore's with 8 steps a scan, so that every scan captures its
+steps' CUDA graphs and replays them (`slam/mapper.py::GradsGraph`). They
+run with the recorder on and under `torch.cuda.set_sync_debug_mode("warn")`;
+each of the mode's warnings is caught with the spans open when it was
+raised (the recorder's `record_function` wrapped to keep them, each entry
+numbered), and the innermost must be a wait span that has not yet seen
+one. The
 census, wait span by wait span, is printed. The mode does not see an
 event's wait (`HostCopy`) or `torch.cuda.synchronize`; both have their
 wait spans all the same.
@@ -49,6 +52,10 @@ RUNS = {
     "orb_loose": dict(BASE, use_object=True, icp_use_model_depth=False,
                       use_orb_backend=True, sync_tracker2mapper_method="loose",
                       sync_tracker2mapper_frames=6),
+    # office0-explore's with 8 steps a scan: the pinned second half
+    # replays the newest frame's graph, so every scan captures and replays
+    "graphed": dict(BASE, use_object=True, icp_use_model_depth=False,
+                    gaussian_update_iter=8),
 }
 
 
@@ -133,6 +140,10 @@ def test_every_synchronising_call_is_in_a_wait_span(cuda_device, run,
     assert census["bin_gaussians/wait"] >= FRAMES - 1
     if run == "objects":
         assert census["objects/readback/wait"] >= 3
+    if run == "graphed":
+        sc = m.scan_counts
+        assert sc["graph_captures"] >= sc["local"] + sc["global"]
+        assert sc["graph_replays"] > sc["graph_captures"]
     if run == "orb_loose":
         # the backend's host work reads nothing of the card but the pose
         assert census["tracking/icp/readback/wait"] == FRAMES - 1
