@@ -3,12 +3,11 @@
 against their plain PyTorch versions.
 
     python3 chip_smoke.py [--frames 12] [--width 1200] [--height 680]
-                          [--profile N]
 
 Path A is the main path of `bench.py`'s configuration (steps 1-5), path B
 the semantic and instance supervision with the objects in MODE=0 (step
-6), then the evaluation CLIs on path B's output (step 7), path C and the
-bench (step 8), path D, a Replica-layout sequence through the dataset
+6), then the evaluation CLIs on path B's output (step 7), path C (step
+8), path D, a Replica-layout sequence through the dataset
 reader and the `run_slam` CLI (step 9), and the no-wait phase, ICP-only
 tracking in loose sync under the sync debug mode (step 10).
 
@@ -120,7 +119,8 @@ tracking in loose sync under the sync debug mode (step 10).
    `make_mesh` (TSDF fusion and marching tetrahedra along the run's
    trajectory, scored against the room), `ablate_assoc` on the synthetic
    sequence, and `per_object_mesh_eval` on the live map.
-8. Path C (`run_path_c`) and the bench phase (`bench_phase`).
+8. Path C (`run_path_c`): path A's frames with `parallel_enabled`, the
+   keyframe scans and the final pass data-parallel over every card.
 9. Path D, a real dataset's entry path: `read_jpeg` and `read_png`
    against PIL's hashes and modes of the committed fixtures
    (`tests/torch_fixtures/jpeg/`: baseline, progressive, Adobe RGB,
@@ -152,11 +152,8 @@ tracking in loose sync under the sync debug mode (step 10).
    and on how many frames tracking returned before its residual's host
    copy had landed.
 
-With `--profile N` the last N frames of step 2 run under `torch.profiler`:
-it prints the device time by kernel and the device's busy share of that
-window, and writes the trace to `chiprun_out/slice_trace.json`; so do
-five iterations of the final pass (its 2nd to 6th), to
-`chiprun_out/final_pass_trace.json`.
+The port's device time by kernel and its idle share come from the
+benchmark's traced run (`slam_bench/run.py --trace 1`), not from here.
 
 Prints the card, per-frame times (host times on the frames that do not
 sync), the timed window, the backend's and the objects' numbers, map and
@@ -199,7 +196,6 @@ KNN_EXPANSION_ROUNDING = 2e-6  # the plain version's, of |q|^2 + |c|^2
 KNN_REPS = 20
 L2_FLUSH_BYTES = 256 << 20    # well over the H100's 50 MB L2
 ADAM_STEPS = 50               # bench.py:111's gaussian_update_iter
-PROFILED_ITERS = 5            # final-pass iterations under --profile
 # K2 against its plain version: the places where exactly one of the two
 # is 0 (a sum of +-c cancelling exactly in one order and to a rounding
 # residue in the other) may number at most MAX_FLIPS, each off by at most
@@ -228,15 +224,6 @@ REPLACES = {
 PATH_B_ROWS = ("blend_fwd_sem", "blend_bwd_sem", "blend_fwd_obj",
                "blend_bwd_obj")
 PATH_C_ROWS = ("blend_fwd_dp", "blend_bwd_dp")
-# the keys of bench.py's JSON line (bench.py:203-243) but `rungs`, which
-# the port has no counterpart of, and the port's own `device` and `card`
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "p50_ms", "p95_ms",
-              "max_ms", "steady_frame_ms", "optimize_frame_ms", "tracker_ms",
-              "mapper_ms", "warmup_s", "dropped_entries", "tile_dropped",
-              "clipped_cells", "entries_max", "entries_per_s", "stages",
-              "psnr", "depth_l1_cm", "ate_cm", "eval_frame", "psnr_final",
-              "depth_l1_final_cm", "ate_full_cm", "icp_fail_count",
-              "frames_over_spike_ms", "device", "card"}
 # path B's semantic classes: the six walls of the synthetic room, then its
 # ellipsoids, one colour each
 CLASS_COLOURS = np.array([
@@ -247,7 +234,6 @@ CLASS_COLOURS = np.array([
 RUN_DIR = os.path.join("chiprun_out", "run")
 RUN_B_DIR = os.path.join("chiprun_out", "run_sem")
 RUN_C_DIR = os.path.join("chiprun_out", "run_dp")
-BENCH_DIR = os.path.join("chiprun_out", "bench")
 EVAL_DIR = os.path.join("chiprun_out", "eval")
 CLI_DIR = os.path.join("chiprun_out", "cli")
 # path D: the room in Replica's layout (`office0/` and `cam_params.json`
@@ -497,8 +483,8 @@ class FinalPass:
     launches it made; the recorder keeps its kernel calls under the
     `_final` names."""
 
-    def __init__(self, system, rec, profile: bool, phase="_final"):
-        self.system, self.rec, self.profile = system, rec, profile
+    def __init__(self, system, rec, phase="_final"):
+        self.system, self.rec = system, rec
         self.phase = phase
         self.m = system.mapping
         self.inner = self.m.global_optimization
@@ -520,42 +506,9 @@ class FinalPass:
             self.info["uncounted_s"] += time.perf_counter() - t0
             LAUNCHES.update(saved)
 
-    def _profiled(self, run):
-        """`run()` (the pass) with its iterations 2 .. PROFILED_ITERS + 1
-        under `torch.profiler`, window edges at the Adam updates: the
-        profiler keeps `info["profile"]` = (profile, wall seconds,
-        iterations). A longer window, beside the frames' one, left the
-        later kernel timings of the process without records."""
-        import torch
-        from dqo_map_tpu_torch.slam import mapper as mapper_mod
-        inner_adam, done, window = mapper_mod.adam_update, [0], {}
-
-        def adam(*a, **kw):
-            out = inner_adam(*a, **kw)
-            done[0] += 1
-            if done[0] in (1, 1 + PROFILED_ITERS):
-                torch.cuda.synchronize()
-                if done[0] == 1:
-                    window["prof"] = start_profile()
-                    window["t0"] = time.perf_counter()
-                else:
-                    window["prof"].__exit__(None, None, None)
-                    self.info["profile"] = (
-                        window["prof"], time.perf_counter() - window["t0"],
-                        PROFILED_ITERS)
-            return out
-
-        mapper_mod.adam_update = adam
-        try:
-            run()
-        finally:
-            mapper_mod.adam_update = inner_adam
-            if "prof" in window and "profile" not in self.info:
-                window["prof"].__exit__(None, None, None)
-
-    def __call__(self, select_keyframe_num: int = -1, is_end: bool = False):
-        if select_keyframe_num != -1 and not is_end:
-            return self.inner(select_keyframe_num, is_end)
+    def __call__(self, select_keyframe_num: int = -1):
+        if select_keyframe_num != -1:
+            return self.inner(select_keyframe_num)
         import torch
         from dqo_map_tpu_torch.slam.mapper import (gaussians_fix,
                                                    render_range_step)
@@ -579,10 +532,7 @@ class FinalPass:
         t0 = time.perf_counter()
         outer, self.rec.phase = self.rec.phase, self.phase
         try:
-            if self.profile:
-                self._profiled(lambda: self.inner(select_keyframe_num, is_end))
-            else:
-                self.inner(select_keyframe_num, is_end)
+            self.inner()
         finally:
             self.rec.phase = outer
         torch.cuda.synchronize()
@@ -656,14 +606,10 @@ def run_main_path(args, device, rec):
     m = system.mapping
     backend = system.tracker.pose_backend
     infos = []
-    prof = None
     window = {}
     inner_step = system.step
 
     def step(cam, i):
-        nonlocal prof
-        if i == args.frames - args.profile:
-            prof = start_profile()
         if i == WARMUP_FRAMES:
             torch.cuda.synchronize(device)
             window["t0"] = time.perf_counter()
@@ -676,12 +622,10 @@ def run_main_path(args, device, rec):
         info["waited_count_reads"] = m.waited_count_reads
         info["source"] = backend.source_last
         infos.append(info)
-        if prof is not None and i == args.frames - 1:
-            prof.__exit__(None, None, None)
         return info
 
     system.step = step
-    final = FinalPass(system, rec, profile=args.profile > 0)
+    final = FinalPass(system, rec)
     m.global_optimization = final
     passes = ColorPasses(system, rec)
     system.save_object_passes = passes
@@ -743,13 +687,6 @@ def run_main_path(args, device, rec):
     check_scans_fall(m, 0)
     if final.info is None:
         raise RuntimeError("run() ran no final pass")
-    if prof is not None:
-        part = infos[-args.profile:]
-        report_profile(prof, sum(i["tracker_s"] + i["mapper_s"] for i in part),
-                       len(part), "frame", "slice_trace.json")
-    if "profile" in final.info:
-        report_profile(*final.info.pop("profile"), "final-pass iteration",
-                       "final_pass_trace.json")
     return (system, cams, infos, final.info, result, tail, launches, seconds,
             window, host, passes, k3)
 
@@ -792,34 +729,6 @@ def keyframe_phase(system, device, rec) -> dict:
     check_launches("keyframe phase", launches, scans0, m.scan_counts, 0)
     check_scans_fall(m, n_log)
     return launches
-
-
-def start_profile():
-    from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    prof.__enter__()
-    return prof
-
-
-def report_profile(prof, wall_s: float, n: int, unit: str, trace: str):
-    """Device time by kernel over a profiled window of `n` units (frames
-    or iterations) that took `wall_s` (the 15 largest and the blend
-    kernels), the device's busy share of the window and its kernel
-    launches per unit; the trace goes to `chiprun_out/<trace>`."""
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    wall_us = 1e6 * wall_s
-    print(f"profile of {n} {unit}s: device busy {busy_us / 1e3:.1f} ms "
-          f"of {wall_us / 1e3:.1f} ms wall ({100 * busy_us / wall_us:.1f}%); "
-          f"{sum(e.count for e in events) / n:.0f} kernel launches per {unit}")
-    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
-    # the 15 largest, and the blend kernels wherever they rank
-    for e in ranked[:15] + [e for e in ranked[15:] if "blend_" in e.key]:
-        print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/{unit} "
-              f"{e.count / n:7.1f} calls/{unit}  {e.key[:90]}")
-    os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out", trace))
 
 
 def quality(system, cams, infos, min_depth=0.1, max_depth=8.0) -> dict:
@@ -1705,7 +1614,7 @@ def run_path_b(args, device, rec):
     layer.optimize_objects_render = optimize_objects_render
     m._count_scan = count_scan
     system.step = step
-    final = FinalPass(system, rec, profile=False, phase=None)
+    final = FinalPass(system, rec, phase=None)
     m.global_optimization = final
     passes = ColorPasses(system, rec)
     system.save_object_passes = passes
@@ -1929,7 +1838,7 @@ def eval_phase(system, scene, args, card: str):
 
 
 # ---------------------------------------------------------------------------
-# path C: data parallelism over the cards; the bench phase
+# path C: data parallelism over the cards
 # ---------------------------------------------------------------------------
 
 def run_path_c(args, device, rec):
@@ -1983,7 +1892,7 @@ def run_path_c(args, device, rec):
         shards["objects"] += int(a[7].sum())          # opt_mask
         return inner_shard(*a, **kw)
 
-    final = FinalPass(system, rec, profile=False, phase=None)
+    final = FinalPass(system, rec, phase=None)
     m.global_optimization = final
     passes = ColorPasses(system, rec)
     system.save_object_passes = passes
@@ -2042,32 +1951,6 @@ def run_path_c(args, device, rec):
         raise RuntimeError(f"path C's output off: {result}")
     shutil.rmtree(RUN_C_DIR)
     return system, {"scans": scans, "seconds": seconds, "result": result}
-
-
-def bench_phase(card: str, device) -> dict:
-    """`python -m dqo_map_tpu_torch.bench` in process at its defaults
-    (30 frames, 18 of them warm-up, then 12 profiled, at 1200x680): its
-    JSON line has bench.py's keys but `rungs`, `dropped_entries` 0, stages
-    for both frame classes with the local scan's `per_iter_ms`, PSNR above
-    15 and ATE finite."""
-    from dqo_map_tpu_torch import bench
-    t0 = time.perf_counter()
-    out = bench.main(["--device", str(device), "--save-path", BENCH_DIR])
-    seconds = time.perf_counter() - t0
-    print(f"bench: {seconds:.1f} s; {out['value']} fps, p50 {out['p50_ms']} "
-          f"ms, steady {out['steady_frame_ms']} ms, optimize "
-          f"{out['optimize_frame_ms']} ms, warm-up {out['warmup_s']} s; PSNR "
-          f"{out['psnr']} dB, depth-L1 {out['depth_l1_cm']} cm, ATE "
-          f"{out['ate_cm']} cm at frame {out['eval_frame']} [{card}]")
-    scan = out["stages"].get("optimize", {}).get("local/optimize_scan x50", {})
-    if not (set(out) == BENCH_KEYS and out["dropped_entries"] == 0
-            and out["stages"].get("steady") and "per_iter_ms" in scan
-            and out["psnr"] > 15 and math.isfinite(out["ate_cm"])
-            and out["card"] == card):
-        raise RuntimeError(f"the bench's line is off: keys "
-                           f"{sorted(set(out) ^ BENCH_KEYS)} differ; {out}")
-    shutil.rmtree(BENCH_DIR, ignore_errors=True)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2385,8 +2268,6 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--width", type=int, default=1200)
     ap.add_argument("--height", type=int, default=680)
-    ap.add_argument("--profile", type=int, default=0,
-                    help="profile the last N frames of the main path")
     args = ap.parse_args(argv)
 
     import torch
@@ -2532,7 +2413,6 @@ def main(argv=None) -> int:
                               (st_c.chunk, st_c.max_chunks_per_tile)))
     del system_c
     rec.last.clear()
-    bench_phase(card, device)
     # path D: path A's frames read back from Replica's layout, and the
     # run_slam CLI on office0's configuration over them
     run_path_d(cams, result, seconds, card)

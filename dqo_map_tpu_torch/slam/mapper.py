@@ -21,7 +21,7 @@ schedule, its loss and the update:
   stable Gaussians whose rects touch the tiles of largest colour error in
   the newest keyframes, at a tenth of the learning rate and with the
   positions fixed;
-- the final whole-history pass (`global_optimization(is_end=True)`, at the
+- the final whole-history pass (`global_optimization()`, at the
   end of `SLAMSystem.run`) promotes every unstable Gaussian, then runs
   `final_global_iter` Adam steps per keyframe over all keyframes, each
   whole (no tile mask), with SSIM in the loss and no depth term, on an
@@ -863,16 +863,6 @@ def prune_untouched(state: MapState, n_touched: torch.Tensor, w2c, K,
     return gm.delete_points(state, kill)
 
 
-def error_remove_step(state: MapState, frame_map: dict, cam: dict,
-                      settings: RenderSettings, add_color_thres: float,
-                      add_depth_thres: float, add_normal_thres: float,
-                      time: int) -> MapState:
-    """`error_remove_from` on a fresh whole-map render at `cam`."""
-    out = render_state(state, cam, settings, "global")
-    return error_remove_from(state, out, frame_map, add_color_thres,
-                             add_depth_thres, add_normal_thres, time)
-
-
 def error_remove_from(state: MapState, out: dict, frame_map: dict,
                       add_color_thres: float, add_depth_thres: float,
                       add_normal_thres: float, time: int) -> MapState:
@@ -1248,8 +1238,7 @@ class Mapping:
                                        opt_mask,
                                        self.args.history_merge_max_weight)
 
-    def global_optimization(self, select_keyframe_num: int = -1,
-                            is_end: bool = False):
+    def global_optimization(self, select_keyframe_num: int = -1):
         """The keyframe scan: the stable Gaussians that touch the tiles of
         largest colour error in the newest `select_keyframe_num` keyframes,
         at a tenth of the learning rate, positions fixed.
@@ -1257,21 +1246,20 @@ class Mapping:
         With `select_keyframe_num=-1` the final whole-history pass: every
         unstable Gaussian promoted first, then `final_global_iter` steps per
         keyframe over every keyframe, whole, with SSIM and without the depth
-        term, the positions fixed, on an unpinned schedule. `is_end` also
-        promotes first.
+        term, the positions fixed, on an unpinned schedule.
 
         With a mesh (`parallel_enabled`) both run data-parallel
         (`parallel.dp.dp_optimize_scan`): every step on the weighted mean
         loss over all the selected keyframes, the stable subset rendered
         whole (with the keyframes' tile masks on the keyframe scan, SSIM on
         the final pass), in place of one keyframe a step."""
-        if select_keyframe_num == -1 or is_end:
+        is_final = select_keyframe_num == -1
+        if is_final:
             self.state = gaussians_fix(self.state, -1.0)
             self._cached_counts = None
         if self.counts()[1] == 0 or not self.keyframes:
             return
         ts = self.settings.tile_size
-        is_final = select_keyframe_num == -1
         n_sel = (len(self.keyframes) if is_final
                  else min(select_keyframe_num, len(self.keyframes)))
         entries = []
@@ -1335,20 +1323,19 @@ class Mapping:
         self._count_scan("final" if is_final else "global", reports)
 
     def mapping(self, frame: Camera, frame_map: dict, frame_id: int,
-                object_layer=None, defer_finalize: bool = False) -> bool:
-        """Per-frame mapping step. With `defer_finalize` it stops before
-        the promote / error-remove / delete tail, and the caller runs
+                object_layer=None) -> bool:
+        """Per-frame mapping step. It stops before the promote /
+        error-remove / delete tail, which the caller runs as
         `finalize_frame` with the end-of-frame model render (as
-        `SLAMSystem.step` does); without it the tail runs here, on a fresh
-        render at the last processed frame (`error_remove_step`). On the
-        optimize cadence it runs the local scan, or on a keyframe over a
-        map with stable Gaussians the keyframe scan. With the object layer,
-        the frame's detections are associated first and the new Gaussians
-        take the object index of their pixel. In MODE=1 the matched objects
-        are refined after the scan on a keyframe (and frame 0); in MODE=0
-        every frame with detections ends with the render refinement of the
-        objects and the deletion of the stable Gaussians whose radius
-        exceeds ten times the stable mean."""
+        `SLAMSystem.step` does). On the optimize cadence it runs the local
+        scan, or on a keyframe over a map with stable Gaussians the
+        keyframe scan. With the object layer, the frame's detections are
+        associated first and the new Gaussians take the object index of
+        their pixel. In MODE=1 the matched objects are refined after the
+        scan on a keyframe (and frame 0); in MODE=0 every frame with
+        detections ends with the render refinement of the objects and the
+        deletion of the stable Gaussians whose radius exceeds ten times the
+        stable mean."""
         if object_layer is not None:
             if frame.detections is not None:
                 with trace.span("objects/associate"):
@@ -1390,22 +1377,6 @@ class Mapping:
             self.state = gaussians_delete(self.state, self.time,
                                           self.args.unstable_time_window,
                                           unstable=False)
-        if not defer_finalize:
-            a = self.args
-            with trace.span("mapping/finalize",
-                            tag="fix+error_remove+delete"):
-                self.state = gaussians_fix(self.state,
-                                           a.stable_confidence_thres)
-                if self.processed_frames and self.counts()[1] > 0:
-                    last_cam, last_fm = self.processed_frames[-1]
-                    self.state = error_remove_step(
-                        self.state, last_fm, last_cam, self.settings,
-                        a.add_color_thres, a.add_depth_thres,
-                        a.add_normal_thres, self.time)
-                self.state = gaussians_delete(self.state, self.time,
-                                              a.unstable_time_window,
-                                              unstable=True)
-            self._prefetch_counts()
         return is_keyframe
 
     def finalize_frame(self, out: dict, frame_map: dict):

@@ -126,8 +126,7 @@ class SLAMSystem:
         t1 = time.perf_counter()
         self.recorder.update_mean("tracking", t1 - t0)
 
-        self.mapping.mapping(frame, frame_map, frame_id, self.object_layer,
-                             defer_finalize=True)
+        self.mapping.mapping(frame, frame_map, frame_id, self.object_layer)
         # the end-of-frame model render feeds the finalize error counts and
         # the tracker's model-depth reference. Where no optimize scan ran,
         # the pre-densify render of `gaussians_add` (same pose, the map less
@@ -239,7 +238,7 @@ class SLAMSystem:
                 if verbose:
                     print(f"  checkpoint -> {p}")
 
-        self.mapping.global_optimization(is_end=True)
+        self.mapping.global_optimization()
         final = self._eval(self.cameras[n - 1])
         self.metrics_history.append({**final, "frame": "final"})
         ate = None

@@ -1,17 +1,17 @@
 """The JAX package's helpers that its own pipeline calls little or not at
 all, against the port's counterparts on the CPU:
 
-- `Mapping.mapping(..., defer_finalize=False)`: the frame's promote /
-  error-remove / delete tail run inside `mapping` on a fresh render at the
-  last processed frame (`error_remove_step`), tagged
-  `fix+error_remove+delete`: frames 1 and 2 of the synthetic room at
+- `SLAMSystem.step`'s promote / error-remove / delete tail
+  (`Mapping.finalize_frame`, on the end-of-frame render, tagged
+  `finalize(fix+err+del)`): frames 1 and 2 of the synthetic room at
   64x48, off the optimize cadence, over the map of frame 0 promoted
   whole, every new Gaussian promoted at once (a confidence threshold
   below 0) so that stable ones meet the error-remove step, the port fed
   the JAX package's draws. (Both gate the error-remove on the stable
   count read as the frame began, so on the frame of the first promotion
-  neither runs it; frame 0 is taken through both without the tail, then
-  promoted, and a case of its own holds the first promotion.) Pose to 1e-4,
+  neither runs it; frame 0 is taken through both `mapping` calls without
+  the tail, then promoted, and a case of its own holds the first
+  promotion.) Pose to 1e-4,
   counts and statuses exact, positions, SH, rotations and log-scales to
   1e-5 and the other fields exactly, but at a few slots: the renders are ill-conditioned in
   the map (as in `test_torch_slice.py`), so one new Gaussian's initial
@@ -70,9 +70,10 @@ def one_thread():
 def _systems(tmp_path, **overrides):
     """Both systems on the synthetic room, off the optimize cadence
     (frames 1-5 of a 6-frame cycle), and a function that takes frame `i`
-    through both, the port fed the JAX package's draws: through `mapping`
-    (its tail deferred or not), or with `step` through `SLAMSystem.step`
-    with the object layer `objects` and a detection on the frame."""
+    through both, the port fed the JAX package's draws: through tracking
+    and `mapping` (without the tail), or with `step` through
+    `SLAMSystem.step` with the object layer `objects` and a detection on
+    the frame."""
     settings = {**SETTINGS, **overrides}
     _, cams = synthetic_sequence(settings.pop("frames", FRAMES), width=W,
                                  height=H)
@@ -84,7 +85,7 @@ def _systems(tmp_path, **overrides):
     jt, jm, pt, pm = jsys.tracker, jsys.mapping, psys.tracker, psys.mapping
     jm.time = pm.time = 1
 
-    def frame(i, defer, objects=None, step=False):
+    def frame(i, objects=None, step=False):
         f, p = jsys.cameras[i], psys.cameras[i]
         draws = _jax_draws(jm.key, W * H)
         if objects is not None:
@@ -95,7 +96,7 @@ def _systems(tmp_path, **overrides):
         else:
             jfm = jt.map_preprocess(f, i)
             jt.tracking(f, jfm)
-            jm.mapping(f, jfm, i, objects, defer_finalize=defer)
+            jm.mapping(f, jfm, i, objects, defer_finalize=True)
         jm.time += 1
         pm._uniform_draws = lambda n, d=draws: d
         if step:
@@ -103,7 +104,7 @@ def _systems(tmp_path, **overrides):
         else:
             pfm = pt.map_preprocess(p, i)
             pt.tracking(p, pfm)
-            pm.mapping(p, pfm, i, objects, defer_finalize=defer)
+            pm.mapping(p, pfm, i, objects)
         pm.time += 1
 
     return jsys, psys, frame
@@ -134,10 +135,10 @@ def _maps_agree(jsys, psys, i) -> dict:
     return pst
 
 
-def test_mapping_without_deferred_finalize_matches_jax(tmp_path):
+def test_deferred_finalize_matches_jax(tmp_path):
     jsys, psys, frame = _systems(tmp_path)
     jm, pm = jsys.mapping, psys.mapping
-    frame(0, True)
+    frame(0)
     jm.state = jmapper.gaussians_fix(jm.state, -1.0)
     jm._prefetch_counts()
     pm.state = mapper.gaussians_fix(pm.state, -1.0)
@@ -148,16 +149,15 @@ def test_mapping_without_deferred_finalize_matches_jax(tmp_path):
     mapper.stage_times(reset=True)
     try:
         for i in range(1, FRAMES):
-            frame(i, False)
+            frame(i, step=True)
             pst = _maps_agree(jsys, psys, i)
         jtags = jmapper.stage_times(reset=True)
         ptags = mapper.stage_times(reset=True)
     finally:
         jmapper.profile_enable(False)
         mapper.profile_enable(False)
-    tag = "fix+error_remove+delete"
+    tag = "finalize(fix+err+del)"
     assert len(ptags[tag]) == len(jtags[tag]) == FRAMES - 1
-    assert "finalize(fix+err+del)" not in ptags
     # the stable Gaussians met the error-remove step
     assert _counts(pst["status"])[1] > 0
 
@@ -168,14 +168,14 @@ def test_first_promotion_matches_jax(tmp_path, monkeypatch):
     began (0, the map counts' once-a-frame mirror), so neither runs it,
     and the maps agree."""
     jsys, psys, frame = _systems(tmp_path)
-    frame(0, True)
+    frame(0)
     ran = []
     for mod in (jmapper, mapper):
-        def record(state, *a, _step=mod.error_remove_step, _mod=mod, **kw):
+        def record(state, *a, _remove=mod.error_remove_from, _mod=mod, **kw):
             ran.append(_mod.__name__)
-            return _step(state, *a, **kw)
-        monkeypatch.setattr(mod, "error_remove_step", record)
-    frame(1, False)
+            return _remove(state, *a, **kw)
+        monkeypatch.setattr(mod, "error_remove_from", record)
+    frame(1, step=True)
     assert ran == []
     pst = _maps_agree(jsys, psys, 1)
     assert _counts(pst["status"])[1] > 0
@@ -196,11 +196,10 @@ class _NoObjects:
 
 
 def test_counts_match_jax_call_by_call(tmp_path, monkeypatch):
-    """Every `counts()` call of both packages over frames 0-2 of the room
-    through `SLAMSystem.step` (the tail deferred to `finalize_frame`) and
-    frame 3 with the tail inside `mapping`: the first promotion, MODE=0's
-    stable delete before every tail, and at frame 3 a compaction of the
-    slots (capacity 560) and its growth. The values agree call by call,
+    """Every `counts()` call of both packages over frames 0-3 of the room
+    through `SLAMSystem.step` (the tail in `finalize_frame`): the first
+    promotion, MODE=0's stable delete before every tail, and at frame 3 a
+    compaction of the slots (capacity 560) and its growth. The values agree call by call,
     and the port reads the map live only before its first frame. The
     poses are the ground truth's, so that densification sees the same
     renders in both packages (ROADMAP: the renders are ill-conditioned,
@@ -235,8 +234,7 @@ def test_counts_match_jax_call_by_call(tmp_path, monkeypatch):
             return _d(state, *a, **kw)
         monkeypatch.setattr(mod, "gaussians_delete", delete)
     for i in range(COUNT_FRAMES):
-        last = i == COUNT_FRAMES - 1
-        frame(i, False, _NoObjects(), step=not last)
+        frame(i, _NoObjects(), step=True)
         assert calls["jax"] == calls["port"], i
     assert pm.live_count_reads == 1
     assert len(compacted) == 2 and pm.state.capacity == 1120

@@ -219,27 +219,30 @@ def test_error_remove_and_prune_match_jax(random_map, rng, scene):
     assert_states_match(pp, jp)
 
 
-def test_error_remove_step_matches_jax(random_map, scene):
-    """`error_remove_step`: `error_remove_from` on each package's own render
-    of the map at a frame, the stable Gaussians' counters moved by the
-    depth error of a displaced frame."""
+@pytest.mark.parametrize("select", [-1, 3])
+def test_global_optimization_without_keyframes_matches_jax(random_map,
+                                                           tmp_path, select):
+    """`global_optimization` before any keyframe: the final pass (-1)
+    still promotes every unstable Gaussian first, as the JAX package's
+    final pass does; the keyframe scan (a keyframe count) leaves the map
+    as it was. Neither runs a scan."""
     from dqo_map_tpu_torch.config import default_config as port_config
-    from dqo_map_tpu_torch.slam.renderer import Renderer
-    cams, fms, _, settings = scene
-    fm = dict(fms[0], depth_map=fms[0]["depth_map"] + 0.4)
-    ref = jax_state(random_map)
-    port = map_state_from_numpy(random_map, "cpu")
-    psettings = Renderer(port_config(min_depth=0.1, max_depth=8.0).map, W,
-                         H).settings
-    jr = jmapper.error_remove_step(ref, {k: jnp.asarray(v) for k, v in fm.items()},
-                                   cams[0].render_inputs(), settings, 0.1,
-                                   0.1, 1000.0, jnp.int32(9))
-    pr = mapper.error_remove_step(port, _torch(fm),
-                                  port_camera(cams[0]).render_inputs("cpu"),
-                                  psettings, 0.1, 0.1, 1000.0, 9)
-    assert_states_match(pr, jr)
-    moved = np.asarray(jr.depth_err_cnt) != random_map["depth_err_cnt"]
-    assert moved.any()
+    cfg = dict(save_path=str(tmp_path), capacity=1024)
+    jm = jmapper.Mapping(default_config(**cfg), W, H)
+    pm = mapper.Mapping(port_config(**cfg), W, H, "cpu")
+    jm.state = jax_state(random_map)
+    pm.state = map_state_from_numpy(random_map, "cpu")
+    if select == -1:
+        jm.global_optimization(is_end=True)
+        pm.global_optimization()
+    else:
+        jm.global_optimization(select)
+        pm.global_optimization(select)
+    assert_states_match(pm.state, jm.state)
+    assert (random_map["status"] == gm.UNSTABLE).any()
+    status = map_state_to_numpy(pm.state)["status"]
+    assert (status == gm.UNSTABLE).any() == (select != -1)
+    assert pm.scan_counts["final"] == pm.scan_counts["global"] == 0
 
 
 def test_knn_matches_exact_jax(rng):

@@ -5,7 +5,7 @@ whole frames with no tile mask, SSIM in the loss, no depth term) and
 `compact_optimize_scan` with `use_bg=False` (the keyframe scan) and
 `use_bg=True` (the default local scan), on `test_compact_opt.py`'s scene,
 carried across with `convert.py`; and both packages' final pass as
-`Mapping.global_optimization(is_end=True)` runs it, with the depth-L1
+`Mapping.global_optimization` runs it at the end of a run, with the depth-L1
 each package's own `eval_frame` reads before and after it. The JAX
 side blends with its plain `ref` implementation, the port with its plain
 versions (`blend_blocks_ref` / `blend_bwd_ref`).
@@ -223,7 +223,7 @@ def test_port_keyframe_scan_matches_its_full_scan():
 
 
 def test_final_pass_matches_jax(tmp_path, recorded_grads):
-    """Both packages' `Mapping.global_optimization(is_end=True)` from the
+    """Both packages' final pass, `Mapping.global_optimization`, from the
     same map and keyframes (the scene's two frames), `final_global_iter`
     2: the unstable rows promoted first, the same unpinned schedule drawn,
     4 steps, and the rows held as in `test_scan_matches_jax`."""
@@ -245,7 +245,7 @@ def test_final_pass_matches_jax(tmp_path, recorded_grads):
                              {k: pf[k][f] for k in ("color", "depth", "normal")}))
     jm.state, pm.state = state, port_state(state)
     jm.global_optimization(is_end=True)
-    pm.global_optimization(is_end=True)
+    pm.global_optimization()
 
     iters = 2 * 2
     assert sorted(jrec) == sorted(prec) == list(range(iters))
@@ -269,7 +269,7 @@ def test_final_pass_depth_l1_moves_as_in_jax(tmp_path):
     the port built over 6 frames of the synthetic room at 64x48, carried
     with its keyframes, poses and schedule generator into the JAX
     package's `Mapping`, then each package's
-    `global_optimization(is_end=True)` and its own `eval_frame` at the last
+    final pass (`global_optimization`) and its own `eval_frame` at the last
     frame before and after. The pass fits colour and SSIM only (no depth
     term, positions fixed), and depth-L1 rises over it in the JAX package
     as in the port, by the same amount: the rise the card showed at frame
@@ -317,7 +317,7 @@ def test_final_pass_depth_l1_moves_as_in_jax(tmp_path):
                             max_depth=8.0)["depth_l1_cm"])
 
     p0, j0 = depth_l1()
-    pm.global_optimization(is_end=True)
+    pm.global_optimization()
     jm.global_optimization(is_end=True)
     p1, j1 = depth_l1()
     assert pm.scan_counts["final"] == 1

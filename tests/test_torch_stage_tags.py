@@ -1,30 +1,17 @@
-"""The port's bench entry point and the mapper's stage timers against the
-JAX package's, on the CPU.
+"""The mapper's stage timers and its render receipts against the JAX
+package's, on the CPU.
 
 - The stage tags: each package's own `SLAMSystem.step` over four
   synthetic frames at 64x48 with the stage timers on (the feature backend,
   3 Adam steps on every 2nd frame, frame 3 a keyframe, so the local scans,
   the keyframe scan, the model renders and the tracker's backend phases
-  all run): the same tags, each recorded as often, in both packages.
+  all run): the same tags, each recorded as often, in both packages. The
+  benchmark's `tracker_ms`, `densify_ms` and `scan_step_ms` read these
+  tags.
 - `Mapping.dropped_entries()`: the JAX 4-tuple from the host's receipts,
   its `dropped` 0, and its one warning where the per-tile cap cut.
-- `python -m dqo_map_tpu_torch.bench`'s `main` on the CPU at
-  BENCH_FRAMES=4, BENCH_WARMUP=2, BENCH_PROFILE_FRAMES=2 and 64x48: one
-  JSON line with `bench.py`'s keys but `rungs` (read from `bench.py`
-  itself), plus `device` and `card`; stages for both frame classes.
-  The bench's map capacity (2^19), its densification budget (16,384
-  points a frame, searched against every candidate) and its 50 Adam steps
-  make one CPU frame take seconds even at 64x48, so this test cuts those
-  three to 16,384, 1,024 and 4; the rest is the bench's configuration. The
-  ladder knobs of the JAX bench have no counterpart and are refused.
 """
 
-import ast
-import dataclasses
-import json
-import os
-
-import numpy as np
 import pytest
 import torch
 
@@ -32,13 +19,11 @@ from dqo_map_tpu.config import default_config as jax_default_config
 from dqo_map_tpu.data.synthetic import synthetic_sequence as jsequence
 from dqo_map_tpu.slam import mapper as jmapper
 from dqo_map_tpu.slam.system import SLAMSystem as JSLAMSystem
-from dqo_map_tpu_torch import bench
 from dqo_map_tpu_torch.config import default_config
 from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
 from dqo_map_tpu_torch.slam import mapper
 from dqo_map_tpu_torch.slam.system import SLAMSystem
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, FRAMES = 64, 48, 4
 TAG_RUN = dict(
     type="Synthetic", use_gt_pose=False, use_orb_backend=True,
@@ -114,55 +99,3 @@ def test_dropped_entries_warns_once_on_tile_drops(capsys):
     assert m.dropped_entries() == (0, 900, 7, 3)
     assert capsys.readouterr().err.count("truncation occurred") == 1
 
-
-def _bench_keys() -> set:
-    """The keys of the JSON line the JAX package's `bench.py` prints."""
-    tree = ast.parse(open(os.path.join(REPO, "bench.py")).read())
-    for node in ast.walk(tree):
-        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
-                == "dumps" and isinstance(node.args[0], ast.Dict)):
-            return {k.value for k in node.args[0].keys}
-    raise AssertionError("bench.py prints no JSON dict")
-
-
-def test_bench_main_on_cpu(tmp_path, monkeypatch, capsys, one_thread):
-    for k, v in dict(BENCH_FRAMES=4, BENCH_WARMUP=2, BENCH_PROFILE_FRAMES=2,
-                     BENCH_W=W, BENCH_H=H).items():
-        monkeypatch.setenv(k, str(v))
-    config = bench.bench_config
-
-    def small(*a, **kw):
-        cfg = config(*a, **kw)
-        assert (cfg.map.capacity, cfg.map.add_capacity,
-                cfg.map.gaussian_update_iter) == (1 << 19, 16384, 50)
-        return dataclasses.replace(cfg, map=dataclasses.replace(
-            cfg.map, capacity=16384, add_capacity=1024,
-            gaussian_update_iter=4))
-
-    monkeypatch.setattr(bench, "bench_config", small)
-    out = bench.main(["--device", "cpu", "--save-path", str(tmp_path)])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1 and json.loads(lines[0]) == out
-    assert set(out) == (_bench_keys() - {"rungs"}) | {"device", "card"}
-    assert out["metric"] == ("tracking+mapping FPS (synthetic office0-scale "
-                             "64x48, 40800 samples, full ICP, mean "
-                             "post-warmup)")
-    assert out["dropped_entries"] == 0 and out["entries_max"] > 0
-    assert out["device"] == "cpu" and out["card"] is None
-    assert out["eval_frame"] == 3 and out["unit"] == "fps"
-    assert np.isfinite([out["value"], out["psnr"], out["ate_cm"],
-                        out["psnr_final"], out["ate_full_cm"]]).all()
-    # frames 2 and 3 timed: 3 is steady, frame 5 (profiled) optimizes
-    assert out["steady_frame_ms"] > 0 and out["optimize_frame_ms"] is None
-    steady, opt = out["stages"]["steady"], out["stages"]["optimize"]
-    assert steady["tracker"]["n"] == 1 and "add/densify" in steady
-    scan = opt["local/optimize_scan x4"]
-    # per_iter_ms from the unrounded mean, mean_ms rounded to 0.1
-    assert scan["n"] == 1 and abs(4 * scan["per_iter_ms"]
-                                  - scan["mean_ms"]) <= 0.1
-
-
-def test_bench_refuses_the_ladder_knobs(monkeypatch):
-    monkeypatch.setenv("BENCH_ENTRY_RUNG", str(1 << 20))
-    with pytest.raises(SystemExit, match="BENCH_ENTRY_RUNG"):
-        bench.main(["--device", "cpu"])
