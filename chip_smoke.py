@@ -81,6 +81,18 @@ tracking in loose sync under the sync debug mode (step 10).
    most crowded tile's alone. Each row carries the live entries per
    non-empty tile of its call (`tile_entries`). Every recorded call must
    have come with the binning's `tile_order`.
+   Then K4 (`csrc/project.cu`, `project_phase`), the render's
+   per-Gaussian chain from the map's leaves to the blend's entry
+   features and back, on the final map at the last camera: its geometry
+   bit-equal to the plain `preprocess_ref`, its colours within rounding,
+   its backward within 1e-5 of `project_bwd_ref` and as close to the plain
+   chain's float64 autograd as its float32 autograd; each of its three
+   kernels' device time a launch, their bytes' bound, the plain chain's
+   time, forward and backward, and each kernel's launches over step 2's
+   run, none of which may be 0.
+   K4 replaces no Pallas kernel: the JAX package leaves the chain to XLA,
+   which fuses it; the port's plain chain was ~1,200 small kernels an
+   optimize step, nine tenths of its launches.
 4. Checks the output: finite maps, every frame tracked with a known pose
    source, the render close to the frame, PSNR, depth-L1 and ATE before
    and after the final pass, at least one object, refined, with its IoU,
@@ -591,7 +603,8 @@ def run_main_path(args, device, rec):
     cameras, per-frame infos, the final pass's `FinalPass.info`, the run's
     result, the seconds of its evaluations and exports, launches,
     seconds, the timed window, the host-side logs, the colour passes,
-    K3's launches a densified frame with the last frame's search inputs)."""
+    K3's launches a densified frame with the last frame's search inputs,
+    K4's launches)."""
     import torch
     from dqo_map_tpu_torch.data.synthetic import synthetic_sequence
     from dqo_map_tpu_torch.slam.system import SLAMSystem
@@ -655,8 +668,10 @@ def run_main_path(args, device, rec):
 
     mapper_mod.densify_step = counted_densify
     mapper_mod.knn2 = kept_search
+    from dqo_map_tpu_torch.ops import project_cuda
     scans0 = dict(m.scan_counts)
     reset_launches()
+    project_cuda.reset_launches()
     t0 = time.perf_counter()
     try:
         with rec:
@@ -666,6 +681,13 @@ def run_main_path(args, device, rec):
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     launches = launches_now()
+    # K4 on every render, binning and coverage mask of the run; its
+    # backward once an eager scan step (a graph's replays launch none)
+    k4 = dict(project_cuda.LAUNCHES)
+    print(f"K4 on the main path: launches {k4}")
+    if not all(k4.values()):
+        raise RuntimeError(f"the main path launched K4 {k4}, wanted each "
+                           "of its kernels at least once")
     calls = k3["calls"]
     print(f"K3 on the main path: {len(calls)} densified frames, launches "
           f"{ {k: sum(c[k] for c in calls) for k in knn.LAUNCHES} }")
@@ -688,7 +710,7 @@ def run_main_path(args, device, rec):
     if final.info is None:
         raise RuntimeError("run() ran no final pass")
     return (system, cams, infos, final.info, result, tail, launches, seconds,
-            window, host, passes, k3)
+            window, host, passes, k3, k4)
 
 
 def check_count_reads(infos, m):
@@ -976,6 +998,155 @@ def knn_path_a(k3) -> dict:
     return {"launches": launches, "main_path": {
         "M": M, "N": N, "k": k, "ms": ms, "ms_range": [lo, hi],
         "rows_differing": share, "rows_tied_f64": ties}}
+
+
+def project_phase(state, cin, settings) -> dict:
+    """K4 on `state`'s render at camera `cin` with `settings`, as the model
+    render and the scans call it (the leaves as stored, SH colours, the
+    subset's mask): the forward's geometry `torch.equal` to the plain
+    chain's (torch's activations, `preprocess_ref`), its colours and the
+    pack against the plain pack; the backward of a K2-shaped cotangent
+    (rows 13 and 14 and padding 0) against `project_bwd_ref` (1e-5 of each
+    leaf's largest gradient: the same operations, rounded alike but for
+    the sums' order) and the plain chain's autograd in float64 (each
+    leaf's relative L2 error at most twice the float32 plain chain's,
+    plus 1e-6: flat Gaussians make the covariance's gradient
+    ill-conditioned in float32 either way); then each kernel's device time a
+    launch (the profiler's), the bytes' bound (each input byte read once,
+    each output byte written once, at 3.35 TB/s) and the plain chain's
+    time, forward and forward with backward."""
+    import torch
+    from dqo_map_tpu_torch.ops import project_cuda
+    from dqo_map_tpu_torch.ops.blend import gather_entry_feats
+    from dqo_map_tpu_torch.ops.projection import (preprocess_ref,
+                                                  project_bwd_ref)
+    from dqo_map_tpu_torch.ops.rasterize import _activated
+    from dqo_map_tpu_torch.slam.renderer import (compute_binning_state,
+                                                 state_render_args)
+    args = state_render_args(state, cin, settings)
+    keys = ("means3d", "scales", "rots", "opacities", "colors")
+    lv = [args[k].detach().contiguous() for k in keys]
+    mask = args["valid_mask"]
+    b = compute_binning_state(state, cin, settings)
+    spec = project_cuda.make_spec(cin, settings, lv[4], True)
+    P, L = lv[0].shape[0], b.demand
+
+    def plain(leaves):
+        sc, ro, op, col = _activated(leaves[0], leaves[1], leaves[2],
+                                     leaves[3], leaves[4], cin, settings,
+                                     True)
+        pre = preprocess_ref(leaves[0], sc, ro, cin, settings.color_sigma,
+                             settings.width, settings.height,
+                             settings.scale_modifier)
+        pre = pre._replace(valid=pre.valid & mask,
+                           radius=torch.where(mask, pre.radius, 0.0))
+        return pre, gather_entry_feats(
+            b.point_list, b.entry_valid, pre.xy, pre.conic, op, col,
+            pre.depth, pre.mean_c, pre.normal_c, pre.scale_max)
+
+    with torch.no_grad():
+        table, valid = project_cuda.project_fwd(*lv, cin, spec, mask)
+        feats = project_cuda.project_pack(table, b.point_list, b.entry_valid)
+        want_pre, want_feats = plain(lv)
+    got_pre = project_cuda.preprocessed(table, valid)
+    for k, v in want_pre._asdict().items():
+        if not torch.equal(getattr(got_pre, k), v):
+            raise RuntimeError(f"K4's {k} differs from the plain preprocess")
+    geo = [r for r in range(16) if r not in (6, 7, 8)]
+    if not torch.equal(feats[geo], want_feats[geo]):
+        raise RuntimeError("K4's pack differs from the plain pack")
+    color_err = float((feats[6:9] - want_feats[6:9]).abs().max())
+    if color_err > 2e-6:
+        raise RuntimeError(f"K4's colours {color_err} off the plain ones")
+
+    g = torch.Generator(device=lv[0].device).manual_seed(22)
+    d = torch.randn(16, L, generator=g, device=lv[0].device)
+    d[13] = d[14] = 0.0
+    d = torch.where(b.entry_valid[None, :], d, 0.0)
+    got = project_cuda.project_bwd(d, b.cell_entry, *lv, cin, spec)
+    ref = project_bwd_ref(d, b.cell_entry, *lv, cin, settings.width,
+                          settings.height, settings.scale_modifier, True,
+                          settings.sh_degree)
+    errs = {}
+    for k, a, c in zip(keys, got, ref):
+        e = float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+        errs[f"ref_{k}"] = e
+        if e > 1e-5:
+            raise RuntimeError(f"K4's backward: {k} {e:.3g} of its largest "
+                               "gradient off project_bwd_ref (1e-5)")
+
+    def autograd(dtype):
+        ls = [x.to(dtype).requires_grad_(True) for x in lv]
+        c = {k: v.to(dtype) if torch.is_tensor(v) else v
+             for k, v in cin.items()}
+        sc, ro, op, col = _activated(ls[0], ls[1], ls[2], ls[3], ls[4], c,
+                                     settings, True)
+        pre = preprocess_ref(ls[0], sc, ro, c, settings.color_sigma,
+                             settings.width, settings.height,
+                             settings.scale_modifier)
+        f = gather_entry_feats(b.point_list, b.entry_valid, pre.xy,
+                               pre.conic, op, col, pre.depth, pre.mean_c,
+                               pre.normal_c, pre.scale_max)
+        return torch.autograd.grad(torch.sum(f * d.to(dtype)), ls)
+
+    # against float64: no further than twice the float32 plain chain
+    truth, auto32 = autograd(torch.float64), autograd(torch.float32)
+    for k, a, a32, t in zip(keys, got, auto32, truth):
+        n = max(float(t.norm()), 1e-300)
+        e, e32 = (float((x.double() - t).norm()) / n for x in (a, a32))
+        errs[f"f64_{k}"], errs[f"f64_plain_{k}"] = e, e32
+        if e > 2.0 * e32 + 1e-6:
+            raise RuntimeError(f"K4's backward: {k} {e:.3g} off float64, "
+                               f"the plain chain {e32:.3g}")
+
+    live = int(b.num_entries)
+    R = b.cell_entry.shape[0]
+    in_b = 4 * (3 + 3 + 4 + 1 + 48) + 1          # leaves and mask a row
+    n_bytes = {"project_fwd": P * (in_b + 4 * 22 + 1),
+               "project_pack": P * 64 + L * (8 + 1 + 64),
+               "project_bwd": (P * (in_b - 1 + 4 * R) + live * 14 * 4
+                               + P * 4 * (3 + 3 + 4 + 1 + 48))}
+    calls = {
+        "project_fwd": lambda: project_cuda.project_fwd(*lv, cin, spec,
+                                                        mask),
+        "project_pack": lambda: project_cuda.project_pack(
+            table, b.point_list, b.entry_valid),
+        "project_bwd": lambda: project_cuda.project_bwd(
+            d, b.cell_entry, *lv, cin, spec)}
+    ms = {k: device_ms(fn, f"{k}_kernel", 20) for k, fn in calls.items()}
+    bound = {k: n / PEAK_BYTES_PER_S * 1e3 for k, n in n_bytes.items()}
+
+    def plain_step(backward):
+        ls = [x.clone().requires_grad_(backward) for x in lv]
+        _, f = plain(ls)
+        if backward:
+            torch.autograd.grad(torch.sum(f * d), ls)
+
+    with torch.no_grad():
+        plain_fwd_ms = time_cuda(lambda: plain(lv), 10)
+    plain_step_ms = time_cuda(lambda: plain_step(True), 10)
+
+    def k4_step():
+        ls = [x.clone().requires_grad_(True) for x in lv]
+        _, _, f = project_cuda.blend_inputs(*ls, cin, settings, mask, True,
+                                            lambda pre: b)
+        torch.autograd.grad(torch.sum(f * d), ls)
+
+    k4_step_ms = time_cuda(k4_step, 10)
+    for k in calls:
+        print(f"{k} (K4): {ms[k]:.4f} ms a launch, bound {bound[k]:.4f} ms "
+              f"({n_bytes[k]} bytes)")
+    print(f"K4 at P {P}, L {L} ({live} live entries): forward and backward "
+          f"through the wrapper {k4_step_ms:.3f} ms, the plain chain "
+          f"{plain_step_ms:.3f} ms (forward alone {plain_fwd_ms:.3f}); "
+          f"colours {color_err:.3g} off, backward {errs}; {card_line()}")
+    return {"name": "project", "route": "cuda",
+            "source": "dqo_map_tpu_torch/csrc/project.cu", "replaces": None,
+            "P": P, "L": L, "live_entries": live, "ms": ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "step_ms": k4_step_ms, "plain_step_ms": plain_step_ms,
+            "plain_fwd_ms": plain_fwd_ms, "color_err": color_err,
+            "grad_err": errs, "library_ms": None}
 
 
 def tile_entries(tile_counts, align: int, max_chunks: int) -> dict:
@@ -2299,7 +2470,7 @@ def main(argv=None) -> int:
 
     rec = Recorder()
     (system, cams, infos, final, result, tail, launches, seconds, window,
-     host, passes, k3) = run_main_path(args, device, rec)
+     host, passes, k3, k4) = run_main_path(args, device, rec)
     knn_row.update(knn_path_a(k3))
     m = system.mapping
     check_count_reads(infos, m)
@@ -2379,6 +2550,8 @@ def main(argv=None) -> int:
     if extra:
         for row in rows:
             row["keyframe_path_launches"] = extra.get(row["name"], 0)
+    project_row = project_phase(final_state, cin, s)
+    project_row["launches"] = k4
 
     ply_round_trip(system, final_state, cin, merge_ply)
     checkpoint_round_trip(system, cams, cin, device)
@@ -2418,7 +2591,7 @@ def main(argv=None) -> int:
     run_path_d(cams, result, seconds, card)
     nowait_phase(args, device, card)
     print(card_line())
-    print(json.dumps({"kernels": rows + [knn_row]}))
+    print(json.dumps({"kernels": rows + [knn_row, project_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,6 +17,12 @@ list is exactly `demand` long, and no entry is dropped for want of room
 (`dropped` is 0).
 The per-tile cap of `align * max_chunks` entries stays; what it cuts, the
 farthest entries of the most crowded tiles, is `tile_dropped`.
+
+`cell_entry` inverts the layout: the entry of each enumerated (cell,
+Gaussian) pair, -1 where the cell was culled, cut or masked off. A
+Gaussian's entries are the column of its row, so K4's backward sums each
+Gaussian's entry gradients there, in cell order, with no sort and no
+atomics (`csrc/project.cu`).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ class Binning(NamedTuple):
     tile_counts: torch.Tensor  # (T,) int64 live entries of each tile
     block_tile: torch.Tensor   # (L/align,) int64 tile per block (-1 unused)
     tile_order: torch.Tensor   # (T,) int64 tiles by live entries, most first
+    cell_entry: torch.Tensor   # (R, P) int32 entry of cell j of gaussian g
     num_entries: int           # valid entries kept
     demand: int                # aligned layout size L (entries + padding)
     num_blocks: int            # align-sized blocks, L / align
@@ -195,6 +202,12 @@ def bin_gaussians(pre: Preprocessed, width: int, height: int, tile_size: int,
     valid = rank < kept_counts[t_of_o]
     src = torch.where(valid, offsets[t_of_o] + rank, 0)
     point_list = sorted_id[src]      # padding slots read sorted_id[0]
+    # each live entry's enumerated cell (j, g) at j * P + g; padding slots
+    # all land on one spare slot past the end
+    cell = torch.where(valid, order[src], R * P)
+    cell_entry = torch.full((R * P + 1,), -1, dtype=torch.int32, device=dev)
+    cell_entry.scatter_(0, cell, torch.arange(L, dtype=torch.int32,
+                                              device=dev))
     entry_tile = torch.where(valid, t_of_o, num_tiles)
     block_tile = torch.where(valid[::align], entry_tile[::align], -1)
     # the launch order of both blends (K1 and K2): a CTA walks a tile's
@@ -203,7 +216,7 @@ def bin_gaussians(pre: Preprocessed, width: int, height: int, tile_size: int,
     return Binning(
         point_list=point_list, entry_tile=entry_tile, entry_valid=valid,
         tile_offsets=poffs, tile_counts=kept_counts, block_tile=block_tile,
-        tile_order=tile_order,
+        tile_order=tile_order, cell_entry=cell_entry[:R * P].view(R, P),
         num_entries=num_entries, demand=L, num_blocks=L // align,
         dropped=0, tile_dropped=tile_dropped, clipped=clipped,
     )

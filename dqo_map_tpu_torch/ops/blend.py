@@ -80,7 +80,8 @@ def gather_entry_feats(point_list, valid_entries, xy, conic, opacity, color,
     """Per-gaussian arrays in sorted entry order, as the (16, L) rows above.
     Padding entries get opacity 0. The gather is an `index_select`, whose
     backward is an `index_add_`: the backward of `rows[:, point_list]`
-    sorts the indices and took ~26 ms a call at office0 on an H100."""
+    sorts the indices and took ~26 ms a call at office0 on an H100. On the
+    card K4's pack and backward take its place (`project_cuda.py`)."""
     ndm = (mean_c[:, 0] * normal_c[:, 0] + mean_c[:, 1] * normal_c[:, 1]
            + mean_c[:, 2] * normal_c[:, 2])
     gid = torch.arange(xy.shape[0], dtype=torch.float32, device=xy.device)

@@ -1,7 +1,8 @@
 """The build of the port's hand-written CUDA kernels: K1 and K2, the
 blend's forward and backward (`csrc/blend_fwd.cu`, `csrc/blend_bwd.cu`,
-bound in `blend_cuda.py`), and K3, densification's KNN (`csrc/knn.cu`,
-bound in `knn.py`).
+bound in `blend_cuda.py`), K3, densification's KNN (`csrc/knn.cu`, bound
+in `knn.py`), and K4, the render's per-Gaussian chain (`csrc/project.cu`,
+bound in `project_cuda.py`).
 
 Each source of `SOURCES` is built with `nvcc` for `sm_90a` at first use,
 one nvcc per source, all started together, into `dqo_map_tpu_torch/_build/`
@@ -20,7 +21,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"blend_fwd": PKG / "csrc" / "blend_fwd.cu",
            "blend_bwd": PKG / "csrc" / "blend_bwd.cu",
-           "knn": PKG / "csrc" / "knn.cu"}
+           "knn": PKG / "csrc" / "knn.cu",
+           "project": PKG / "csrc" / "project.cu"}
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]

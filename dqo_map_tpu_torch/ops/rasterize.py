@@ -9,6 +9,12 @@ differentiable in the Gaussians' parameters. The entry list is sized by the
 binning itself, so the receipts carry `dropped_entries` = 0; `tile_dropped`
 and `clipped_cells` report the two caps that do change the image.
 
+For tensors on the card, everything before the blend is K4
+(`project_cuda.py`): the leaves' activations (`activate=`: the map's
+log-scales, quaternions and opacity logits as stored), the SH colours
+(colours given as (P, 16, 3) SH), the projection and the entry pack, one
+kernel each way; on the CPU the same chain runs in plain PyTorch.
+
 The optimize scans bin each frame once (`compute_binning`) and blend every
 iteration from the current parameters with that binning (`binning=`), with
 the one-surface background (`bg_tiled=`) and in tile space (`tiled=`).
@@ -23,7 +29,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.math3d import normalize
 from . import binning as binning_mod
+from . import project_cuda
 from .blend import BlendParams
 from .blend_cuda import blend_tiles, pack_entries
 from .projection import preprocess
@@ -64,14 +72,25 @@ class RenderSettings(NamedTuple):
         )
 
 
+def _activated(means3d, scales, rots, opacities, colors, cam,
+               settings: RenderSettings, activate: bool):
+    """The plain chain's activations of stored leaves (`activate`) and SH
+    colours ((P, 16, 3) `colors`)."""
+    if activate:
+        scales, rots = torch.exp(scales), normalize(rots)
+    if colors is not None and colors.dim() == 3:
+        colors = eval_colors(colors, means3d, cam["cam_pos"],
+                             settings.sh_degree)
+    if activate and opacities is not None:
+        opacities = torch.sigmoid(opacities)
+    return scales, rots, opacities, colors
+
+
 def _preprocess(means3d, scales, rots, cam, settings: RenderSettings,
-                valid_mask=None):
-    pre = preprocess(means3d, scales, rots, cam, settings.color_sigma,
-                     settings.width, settings.height, settings.scale_modifier)
-    if valid_mask is not None:
-        pre = pre._replace(valid=pre.valid & valid_mask,
-                           radius=torch.where(valid_mask, pre.radius, 0.0))
-    return pre
+                valid_mask=None, activate: bool = False):
+    return preprocess(means3d, scales, rots, cam, settings.color_sigma,
+                      settings.width, settings.height, settings.scale_modifier,
+                      valid_mask, activate)
 
 
 def _bin(pre, settings: RenderSettings, tile_mask=None):
@@ -85,25 +104,38 @@ def blend_inputs(means3d: torch.Tensor, scales: torch.Tensor,
                  rots: torch.Tensor, opacities: torch.Tensor,
                  colors: torch.Tensor, cam: dict, settings: RenderSettings,
                  tile_mask: Optional[torch.Tensor] = None,
-                 valid_mask: Optional[torch.Tensor] = None, binning=None):
-    """Projection, tile binning (unless a `binning` of the same camera is
-    given) and the entry pack: everything the blend reads. Returns
-    (Preprocessed, Binning, feats (16, L))."""
+                 valid_mask: Optional[torch.Tensor] = None, binning=None,
+                 activate: bool = False):
+    """Activations, SH colours, projection, tile binning (unless a
+    `binning` of the same camera is given) and the entry pack: everything
+    the blend reads; K4 on the card. Returns (Preprocessed, Binning, feats
+    (16, L))."""
+    def bin_fn(pre):
+        return _bin(pre, settings, tile_mask) if binning is None else binning
+
+    if means3d.is_cuda:
+        return project_cuda.blend_inputs(means3d, scales, rots, opacities,
+                                         colors, cam, settings, valid_mask,
+                                         activate, bin_fn)
+    scales, rots, opacities, colors = _activated(
+        means3d, scales, rots, opacities, colors, cam, settings, activate)
     pre = _preprocess(means3d, scales, rots, cam, settings, valid_mask)
-    b = _bin(pre, settings, tile_mask) if binning is None else binning
+    b = bin_fn(pre)
     return pre, b, pack_entries(pre, b, colors, opacities)
 
 
 def compute_binning(means3d: torch.Tensor, scales: torch.Tensor,
                     rots: torch.Tensor, cam: dict, settings: RenderSettings,
                     tile_mask: Optional[torch.Tensor] = None,
-                    valid_mask: Optional[torch.Tensor] = None):
+                    valid_mask: Optional[torch.Tensor] = None,
+                    activate: bool = False):
     """The tile binning alone, for reuse across the renders of one camera
     (every iteration of an optimize scan): the blend then evaluates alpha
     from the current parameters with the tile lists and depth order frozen
     here."""
     with torch.no_grad():
-        pre = _preprocess(means3d, scales, rots, cam, settings, valid_mask)
+        pre = _preprocess(means3d, scales, rots, cam, settings, valid_mask,
+                          activate)
         return _bin(pre, settings, tile_mask)
 
 
@@ -127,14 +159,16 @@ def _rect_indicators(pre, tile_size: int, TH: int, TW: int, valid):
 
 def coverage_tile_mask(means3d: torch.Tensor, scales: torch.Tensor,
                        rots: torch.Tensor, cam: dict, settings: RenderSettings,
-                       valid_mask: Optional[torch.Tensor] = None):
+                       valid_mask: Optional[torch.Tensor] = None,
+                       activate: bool = False):
     """(TH, TW) int32: tiles whose rect overlaps any valid gaussian's
     projected rect, the per-tile coverage count as one (TH, P) x (P, TW)
     product, with no sort."""
     TH, TW = binning_mod.tile_grid_size(settings.width, settings.height,
                                         settings.tile_size)
     with torch.no_grad():
-        pre = _preprocess(means3d, scales, rots, cam, settings)
+        pre = _preprocess(means3d, scales, rots, cam, settings,
+                          activate=activate)
         valid = pre.valid if valid_mask is None else pre.valid & valid_mask
         Ax, Ay = _rect_indicators(pre, settings.tile_size, TH, TW, valid)
         return (Ay.T @ Ax > 0.5).int()
@@ -166,13 +200,16 @@ def rasterize(means3d: torch.Tensor, scales: torch.Tensor, rots: torch.Tensor,
               with_normal: bool = True,
               with_n_touched: bool = True,
               binning=None, bg_tiled: Optional[torch.Tensor] = None,
-              tiled: bool = False) -> dict:
+              tiled: bool = False, activate: bool = False) -> dict:
     """Render a view, differentiably in the five per-gaussian inputs.
 
     means3d (P,3); scales (P,3) activated; rots (P,4) normalized wxyz;
-    opacities (P,) activated; colors (P,3) RGB (`eval_colors` for SH);
-    valid_mask (P,) excludes dead slots. Returns (H,W[,C]) maps, the
-    per-gaussian n_touched (P,) and the binning receipts.
+    opacities (P,) activated; with `activate` the three are the map's
+    leaves as stored instead (log-scales, wxyz quaternions, opacity logits)
+    and are activated here; colors (P,3) RGB, or (P,16,3) SH evaluated at
+    `settings.sh_degree` from `cam["cam_pos"]`; valid_mask (P,) excludes
+    dead slots. Returns (H,W[,C]) maps, the per-gaussian n_touched (P,) and
+    the binning receipts.
 
     `binning` reuses a `compute_binning` of the same camera and gaussians;
     `bg_tiled` (num_tiles, 256, 8) is the one-surface background
@@ -182,7 +219,7 @@ def rasterize(means3d: torch.Tensor, scales: torch.Tensor, rots: torch.Tensor,
     H, W = settings.height, settings.width
     pre, b, feats = blend_inputs(means3d, scales, rots, opacities, colors,
                                  cam, settings, tile_mask, valid_mask,
-                                 binning)
+                                 binning, activate)
     TH, TW = binning_mod.tile_grid_size(W, H, settings.tile_size)
     out = blend_tiles(feats, b.tile_offsets, b.tile_counts, TH * TW,
                       settings.tile_size, W, H, cam["K"],

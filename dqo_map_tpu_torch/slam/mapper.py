@@ -93,7 +93,7 @@ from ..utils.ply import save_map_ply
 from ..utils import trace
 from ..utils.trace import profile_enable, stage_times  # noqa: F401
 from .renderer import (Renderer, compute_binning_state, coverage_mask_state,
-                       render_state, state_geometry)
+                       render_state, state_leaves)
 
 # the optional supervision images of a scan's stacked frames
 SEMANTIC_MAPS = ("semantics_color", "instance_img")
@@ -297,8 +297,8 @@ def capture_plan(rand_idx) -> list:
 
 class GradsGraph:
     """`_grads` at one frame of a scan as one CUDA graph: the forward render
-    through K1, the loss and its backward through K2 and autograd's gathers,
-    about 1,400 kernels a step that the host otherwise launches one by one.
+    through K4 and K1, the loss and its backward through K2 and K4, about
+    150 kernels a step that the host otherwise launches one by one.
     It is captured over static copies of the `OPT_FIELDS` leaves, on
     `stream` into the scan's memory pool `pool`; the frame's binning,
     background, targets and the gathered rows are fixed for the scan and
@@ -642,13 +642,14 @@ def touched_rows(state: MapState, frames: dict, settings: RenderSettings,
     B = state.count
     TH, TW = binning_mod.tile_grid_size(settings.width, settings.height,
                                         settings.tile_size)
-    xyz, sc, ro, _ = state_geometry(state)
+    xyz, sc, ro, _ = state_leaves(state)
     hit = torch.zeros(B, dtype=torch.bool, device=state.device)
     with torch.no_grad():
         for f in range(frames["w2c"].shape[0]):
             pre = preprocess(xyz, sc, ro, _frame_cam(frames, f),
                              settings.color_sigma, settings.width,
-                             settings.height, settings.scale_modifier)
+                             settings.height, settings.scale_modifier,
+                             activate=True)
             hit = hit | gaussian_tile_overlap(pre, frames["tile_mask"][f],
                                               settings.tile_size, TH, TW)
     hit = hit & (state.status[:B] == status_value)

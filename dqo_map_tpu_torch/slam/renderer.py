@@ -21,8 +21,7 @@ import torch
 
 from ..models.gaussian_map import STABLE, UNSTABLE, MapState
 from ..ops.rasterize import (RenderSettings, compute_binning,
-                             coverage_tile_mask, eval_colors, rasterize)
-from ..utils.math3d import normalize
+                             coverage_tile_mask, rasterize)
 
 
 class Renderer:
@@ -85,28 +84,27 @@ def subset_mask(state: MapState, subset: str) -> torch.Tensor:
     raise ValueError(subset)
 
 
-def state_geometry(state: MapState, subset: str = "global"):
-    """Positions, activated scales and rotations of the alive prefix
-    [0:count], and the subset's mask over it."""
+def state_leaves(state: MapState, subset: str = "global"):
+    """Positions, log-scales and quaternions of the alive prefix [0:count]
+    as stored (for `activate=True`), and the subset's mask over it."""
     B = state.count
-    return (state.xyz[:B], torch.exp(state.scaling[:B]),
-            normalize(state.rotation[:B]), subset_mask(state, subset)[:B])
+    return (state.xyz[:B], state.scaling[:B], state.rotation[:B],
+            subset_mask(state, subset)[:B])
 
 
 def state_render_args(state: MapState, cam_inputs: dict,
                       settings: RenderSettings, subset: str = "global",
                       colors_precomp: Optional[torch.Tensor] = None) -> dict:
     """The rasterizer's per-gaussian inputs for a MapState subset, over the
-    alive prefix [0:count]; the colours from the SH, or `colors_precomp`
-    (capacity, 3) where given."""
+    alive prefix [0:count], as stored (`activate=True`: the rasterizer
+    applies exp, normalize and sigmoid); the colours as the SH, or
+    `colors_precomp` (capacity, 3) where given."""
     B = state.count
-    xyz, scales, rots, valid = state_geometry(state, subset)
-    colors = (colors_precomp[:B] if colors_precomp is not None else
-              eval_colors(state.sh[:B], xyz, cam_inputs["cam_pos"],
-                          settings.sh_degree))
-    return dict(means3d=xyz, scales=scales, rots=rots,
-                opacities=torch.sigmoid(state.opacity[:B]), colors=colors,
-                valid_mask=valid)
+    xyz, scaling, rotation, valid = state_leaves(state, subset)
+    colors = (colors_precomp if colors_precomp is not None else state.sh)
+    return dict(means3d=xyz, scales=scaling, rots=rotation,
+                opacities=state.opacity[:B], colors=colors[:B],
+                valid_mask=valid, activate=True)
 
 
 def compute_binning_state(state: MapState, cam_inputs: dict,
@@ -114,18 +112,19 @@ def compute_binning_state(state: MapState, cam_inputs: dict,
                           tile_mask: Optional[torch.Tensor] = None):
     """The tile binning of a MapState subset, for `render_state(...,
     binning=...)` at the same camera while the map's slots stay put."""
-    xyz, scales, rots, valid = state_geometry(state, subset)
-    return compute_binning(xyz, scales, rots, cam_inputs, settings,
-                           tile_mask=tile_mask, valid_mask=valid)
+    xyz, scaling, rotation, valid = state_leaves(state, subset)
+    return compute_binning(xyz, scaling, rotation, cam_inputs, settings,
+                           tile_mask=tile_mask, valid_mask=valid,
+                           activate=True)
 
 
 def coverage_mask_state(state: MapState, cam_inputs: dict,
                         settings: RenderSettings, subset: str = "unstable"):
     """(TH, TW) tile mask of the tiles a MapState subset's projected rects
     cover (`coverage_tile_mask`)."""
-    xyz, scales, rots, valid = state_geometry(state, subset)
-    return coverage_tile_mask(xyz, scales, rots, cam_inputs, settings,
-                              valid_mask=valid)
+    xyz, scaling, rotation, valid = state_leaves(state, subset)
+    return coverage_tile_mask(xyz, scaling, rotation, cam_inputs, settings,
+                              valid_mask=valid, activate=True)
 
 
 def render_state(state: MapState, cam_inputs: dict, settings: RenderSettings,

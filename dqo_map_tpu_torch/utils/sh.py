@@ -51,3 +51,36 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     # maximum, not clamp: a colour exactly at 0 (a black sample's DC) passes
     # half its gradient, as in the reference
     return torch.maximum(result, result.new_zeros(()))
+
+
+def sh_basis_grad(deg: int, dirs: torch.Tensor) -> torch.Tensor:
+    """The gradient of each `sh_basis` value in the direction (..., K, 3):
+    the SH colour's derivative in the view direction is
+    sum_k grad_k * (sh_k . dL/dcolour)."""
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    zero = torch.zeros_like(x)
+    g = [(zero, zero, zero)]
+    if deg > 0:
+        c = C1 * torch.ones_like(x)
+        g += [(zero, -c, zero), (zero, zero, c), (-c, zero, zero)]
+        if deg > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            g += [(C2[0] * y, C2[0] * x, zero),
+                  (zero, C2[1] * z, C2[1] * y),
+                  (-2.0 * C2[2] * x, -2.0 * C2[2] * y, 4.0 * C2[2] * z),
+                  (C2[3] * z, zero, C2[3] * x),
+                  (2.0 * C2[4] * x, -2.0 * C2[4] * y, zero)]
+            if deg > 2:
+                g += [(C3[0] * 6.0 * x * y, C3[0] * 3.0 * (xx - yy), zero),
+                      (C3[1] * y * z, C3[1] * x * z, C3[1] * x * y),
+                      (-C3[2] * 2.0 * x * y,
+                       C3[2] * (4.0 * zz - xx - 3.0 * yy),
+                       C3[2] * 8.0 * y * z),
+                      (-C3[3] * 6.0 * x * z, -C3[3] * 6.0 * y * z,
+                       C3[3] * (6.0 * zz - 3.0 * xx - 3.0 * yy)),
+                      (C3[4] * (4.0 * zz - 3.0 * xx - yy),
+                       -C3[4] * 2.0 * x * y, C3[4] * 8.0 * x * z),
+                      (C3[5] * 2.0 * x * z, -C3[5] * 2.0 * y * z,
+                       C3[5] * (xx - yy)),
+                      (C3[6] * 3.0 * (xx - yy), -C3[6] * 6.0 * x * y, zero)]
+    return torch.stack([torch.stack(v, dim=-1) for v in g], dim=-2)

@@ -183,7 +183,8 @@ def test_k3_wrapper_refuses(bad):
 def test_k3_builds_with_the_blend_kernels():
     """K3's source is one of the port's one parallel nvcc build, named by
     the hash of its source and the flags."""
-    assert set(cuda_build.SOURCES) == {"blend_fwd", "blend_bwd", "knn"}
+    assert set(cuda_build.SOURCES) == {"blend_fwd", "blend_bwd", "knn",
+                                       "project"}
     assert all(p.exists() for p in cuda_build.SOURCES.values())
     target = cuda_build._target("knn")
     assert target.parent == cuda_build.BUILD_DIR
